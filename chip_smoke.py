@@ -8,17 +8,25 @@ toolkit. In order, it
 1. requires a CUDA device and prints the card's name and power limit;
 2. builds every hand-written kernel from ``src/repro_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes and at yi-6b's widths, and times kernel, plain
+   serving and generate paths' shapes and at yi-6b's widths (and a
+   16384-token cache for decode attention), and times kernel, plain
    version and (where one PyTorch call computes the same function) the
    library call with CUDA events;
-4. checks the remote model's prefill on the card against the CPU on a
-   reduced config, then serves 256 requests through
+4. checks the remote model's prefill and its decode steps on the card
+   against the CPU on reduced configs (yi-6b; h2o-danube, whose
+   sliding-window ring buffer wraps), then serves 256 requests through
    ``repro_torch.launch.serve`` with yi-6b at full width as the remote
    tier, and 64 more through an engine whose local tier is a
    ``FusedLocalHead`` over the same surrogate, asserting that every
    request is answered, that billing reconciles and that each kernel ran
    on those paths;
-5. prints one ``{"kernels": [...]}`` line and, last, one
+5. generates 32 tokens for 8 prompts of 512 tokens with the same yi-6b
+   weights (``repro_torch.serving.greedy_generate``), asserting the
+   decode-attention and maxconf launches on that run and that every
+   decoded token is what a fresh prefill picks wherever its logit gap
+   decides it; times the decode steps, profiles one, and applies the 2nd
+   supervisor (``seq_min_likelihood``) to the answers;
+6. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line. Full results are also
@@ -47,6 +55,17 @@ PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}   # dense, data sheet
 SERVE_ARGV = ["--requests", "256", "--batch", "32", "--remote-budget", "0.3"]
 FUSED_REQUESTS = 64
 CONF_TOL = 1e-4        # the gate kernels' confidence tolerance (conf <= 1)
+GEN_ROWS, GEN_PROMPT, GEN_TOKENS = 8, 512, 32   # the generate phase
+# The decode and prefill paths round their bf16 activations at different
+# places: their logits may differ by at most this (2.5x the largest
+# difference measured on an H100, 0.10), and a decoded token is checked
+# against a fresh prefill wherever that prefill's top-2 gap exceeds it
+GEN_LOGIT_TOL = 0.25
+# decode attention vs its plain version in f32 on the same inputs:
+# |got - want| <= rtol * |want| + atol. bf16: one rounding of the output
+# (at most 2^-8 relative), and atol for the fp32 sums; the limit shrinks
+# with the output, which a softmax over a long cache makes small
+DECODE_TOL = {torch.bfloat16: (2.0 ** -8, 1e-3), torch.float32: (0.0, 1e-4)}
 RESULTS: dict = {"phases": {}}
 
 
@@ -278,6 +297,95 @@ def check_flash(dev, b: int, t: int, dtype, seed: int, window: int = 0,
     return row
 
 
+def check_decode(dev, b: int, s: int, dtype, seed: int, lens=None,
+                 h: int = 32, kh: int = 4, hd: int = 128) -> dict:
+    """Decode attention at [B, S, K, hd] caches with per-row ``lens``
+    (default: every slot valid) against the plain version in f32."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, h, hd), np.float32))
+    q = q.to(dev).to(dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, kh, hd), np.float32))
+            .to(dev).to(dtype) for _ in range(2))
+    lens = [s] * b if lens is None else list(lens)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = dk.decode_attention(q, k, v, kv_len)
+    want = decode_attention_ref(q.float(), k.float(), v.float(), kv_len)
+    torch.cuda.synchronize()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    rtol, atol = DECODE_TOL[dtype]
+    tag = f"[{b},{s},{kh},{hd}] h={h} {dtype} lens {min(lens)}..{max(lens)}"
+    assert got.dtype == dtype and got.shape == q.shape, tag
+    used = float((diff / (rtol * want.abs() + atol)).max())
+    assert used <= 1, \
+        f"decode attention {tag} max err {err} exceeds {rtol}|want| + {atol}"
+    k_ms = time_ms(lambda: dk.decode_attention(q, k, v, kv_len))
+    p_ms = time_ms(lambda: decode_attention_ref(q, k, v, kv_len))
+    # yardstick: SDPA over the [B, K, S, hd] view with the kv_len mask
+    mask = (torch.arange(s, device=dev)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    valid = float(sum(lens))
+    esz = q.element_size()
+    bnd, by = bound(esz * (2 * b * h * hd + 2 * valid * kh * hd) + 4 * b,
+                    4.0 * h * hd * valid,
+                    "bf16" if dtype == torch.bfloat16 else "fp32")
+    row = {"kernel": "decode_attention", "shape": [b, s, kh, hd],
+           "heads": h, "kv_len": [min(lens), max(lens)],
+           "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+           "rtol": rtol, "atol": atol, "share_of_limit": used,
+           "kernel_ms": k_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
+    log(row)
+    return row
+
+
+def check_maxconf(dev, b: int, v: int, seed: int) -> dict:
+    """maxconf at [B, V] f32 with planted maxima (and, on every other
+    row, a planted tie at a later column: the first index must win)."""
+    from repro_torch.kernels.maxconf import kernel as mk
+    from repro_torch.kernels.maxconf.ref import maxconf_ref
+    rng = np.random.default_rng(seed)
+    x = planted_logits(rng, b, v)
+    top = x.argmax(1)
+    for r in range(0, b, 2):
+        later = int(rng.integers(top[r] + 1, v)) if top[r] + 1 < v else top[r]
+        x[r, later] = x[r, top[r]]
+    logits = torch.from_numpy(x).to(dev)
+    got = mk.maxconf(logits)
+    want = maxconf_ref(logits)
+    torch.cuda.synchronize()
+    tag = f"[{b},{v}]"
+    assert torch.equal(got["prediction"], want["prediction"]), \
+        f"maxconf prediction {tag}"
+    assert torch.equal(got["prediction"].cpu(),
+                       torch.from_numpy(top.astype(np.int32))), \
+        f"maxconf first-index ties {tag}"
+    errs = {key: float((got[key] - want[key]).abs().max())
+            for key in ("max_softmax", "pcs", "entropy")}
+    # max_softmax and pcs: fp32 sums in another order; entropy is
+    # m1 + log s - t/s, a difference of terms as large as the top logit
+    tols = {"max_softmax": 1e-5, "pcs": 1e-5,
+            "entropy": 2e-6 * float(np.abs(x).max()) + 1e-5}
+    for key, e in errs.items():
+        assert e <= tols[key], f"maxconf {key} {tag} max err {e}"
+    k_ms = time_ms(lambda: mk.maxconf(logits))
+    p_ms = time_ms(lambda: maxconf_ref(logits))
+    bnd, by = bound(b * v * 4 + b * 16, 6.0 * b * v, "fp32")
+    row = {"kernel": "maxconf", "shape": [b, v], "dtype": "float32",
+           "max_abs_err": max(errs.values()), "errs": errs, "atol": tols,
+           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+           "bound_ms": bnd, "bound_by": by}
+    log(row)
+    return row
+
+
 def kernel_phase(dev) -> dict:
     out = {"gate_path": check_gate(dev, 32, 8, seed=11),
            "gate_yi6b": check_gate(dev, 32, 64000, seed=12),
@@ -296,6 +404,20 @@ def kernel_phase(dev) -> dict:
             out[key] = check_flash(dev, b, t, dt, seed=15)
     out["flash_window"] = check_flash(dev, 2, 300, torch.float32, seed=16,
                                       window=64)
+    # decode attention: the generate path's last step (8 prompts of 512
+    # tokens + 31 decoded: 543 valid of 544 slots), per-row lengths, a
+    # full 64-slot ring buffer and a long context
+    s_path = GEN_PROMPT + GEN_TOKENS
+    for dt in (torch.bfloat16, torch.float32):
+        out[f"decode_path_{str(dt).split('.')[-1]}"] = check_decode(
+            dev, GEN_ROWS, s_path, dt, seed=18, lens=[s_path - 1] * GEN_ROWS)
+    out["decode_ragged"] = check_decode(
+        dev, 8, s_path, torch.bfloat16, seed=19,
+        lens=[1, s_path, 100, 272, 400, 7, s_path - 1, 33])
+    out["decode_ring64"] = check_decode(dev, 8, 64, torch.bfloat16, seed=20)
+    out["decode_long"] = check_decode(dev, 8, 16384, torch.bfloat16, seed=21)
+    out["maxconf_path"] = check_maxconf(dev, GEN_ROWS, 64000, seed=22)
+    out["maxconf_152k"] = check_maxconf(dev, 32, 152064, seed=23)
     return out
 
 
@@ -325,6 +447,51 @@ def model_phase(dev) -> dict:
     log(row)
     assert err <= 1e-3, f"reduced prefill card vs cpu: {err}"
     return row
+
+
+def decode_model_phase(dev) -> list[dict]:
+    """Reduced yi-6b and reduced h2o-danube (prompt 96 > window 64: the
+    ring buffer wraps): prefill, then decode a fixed token sequence
+    (teacher-forced) on the card (kernels) and on the CPU (plain
+    versions), on the same weights; logits at every step and the final
+    caches agree within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.generate import graft
+    from repro_torch.tree import tree_map
+    rows = []
+    for arch in ("yi-6b", "h2o-danube-1.8b"):
+        cfg = get_config(arch).reduced()
+        params = T.init_params(cfg, torch.Generator("cpu").manual_seed(5))
+        gparams = tree_map(lambda a: a.to(dev), params)
+        rng = np.random.default_rng(24)
+        prompt = rng.integers(1, cfg.vocab_size, (3, 96))
+        forced = rng.integers(1, cfg.vocab_size, (3, 8))
+        caches, logits = {}, {}
+        for where, p in (("cpu", params), ("card", gparams)):
+            d = "cpu" if where == "cpu" else dev
+            with torch.no_grad():
+                _, pc = T.prefill(cfg, p, {"tokens": prompt})
+                cache = graft(T.make_cache(cfg, 3, 96 + 8, d), pc)
+                steps = []
+                for i in range(forced.shape[1]):
+                    lg, cache = T.decode_step(cfg, p, forced[:, i], cache,
+                                              96 + i)
+                    steps.append(lg.cpu())
+            caches[where], logits[where] = cache, torch.stack(steps)
+        torch.cuda.synchronize()
+        err = max(float((logits["card"] - logits["cpu"]).abs().max()),
+                  *(float((caches["card"]["main"][k].cpu()
+                           - caches["cpu"]["main"][k]).abs().max())
+                    for k in ("k", "v")))
+        row = {"phase": "decode_model", "config": cfg.name,
+               "slots": int(caches["card"]["main"]["k"].shape[2]),
+               "steps": int(forced.shape[1]), "max_abs_err": err,
+               "atol": 1e-3}
+        log(row)
+        assert err <= 1e-3, f"reduced decode card vs cpu ({arch}): {err}"
+        rows.append(row)
+    return rows
 
 
 def serve_checks(res, n: int) -> dict:
@@ -391,7 +558,7 @@ def routing_decided(rows, t_local: float | None, batch: int,
                 f"window {w}: capacity cut within {2 * delta}"
 
 
-def serve_phase(dev, argv=SERVE_ARGV) -> dict:
+def serve_phase(dev, argv=SERVE_ARGV):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.fused_head_gate.ops import FusedLocalHead
     from repro_torch.launch import serve
@@ -466,31 +633,18 @@ def serve_phase(dev, argv=SERVE_ARGV) -> dict:
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     log({"phase": "serve", **out})
     out["remote_window_profile"] = profile_remote_window(stack)
-    return out
+    return out, stack
 
 
-def profile_remote_window(stack, rows: int = 8, reps: int = 5) -> dict:
-    """Where one remote transport window's time goes: its wall time
-    unprofiled (median of ``reps``), then one run under torch.profiler
-    for device (kernel) time by name and the device's busy share."""
+def device_profile(fn) -> dict:
+    """One call of ``fn`` (ending in a synchronize) under torch.profiler:
+    its traced wall time, device (kernel) time by name and the device's
+    busy share."""
     from torch.profiler import ProfilerActivity, profile
-    batch = {"tokens": stack.toks[:rows] % stack.rcfg.vocab_size,
-             "idx": np.arange(rows)}
-
-    def window():
-        stack.remote_apply(batch)
-        torch.cuda.synchronize()
-
-    window()
-    walls = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        window()
-        walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        window()
+        fn()
         traced_ms = (time.perf_counter() - t0) * 1e3
 
     def device_us(e) -> float:
@@ -507,14 +661,166 @@ def profile_remote_window(stack, rows: int = 8, reps: int = 5) -> dict:
                    and device_us(e) > 0),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in kern)
+    return {"traced_wall_ms": traced_ms,
+            "device_busy_ms": busy_ms if kern else None,
+            "device_busy_share": busy_ms / traced_ms if kern else None,
+            "top_kernels_ms": [[k, round(ms, 4), n] for k, ms, n in kern[:8]]}
+
+
+def profile_remote_window(stack, rows: int = 8, reps: int = 5) -> dict:
+    """Where one remote transport window's time goes: its wall time
+    unprofiled (median of ``reps``), then one run under torch.profiler
+    for device (kernel) time by name and the device's busy share."""
+    batch = {"tokens": stack.toks[:rows] % stack.rcfg.vocab_size,
+             "idx": np.arange(rows)}
+
+    def window():
+        stack.remote_apply(batch)
+        torch.cuda.synchronize()
+
+    window()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        window()
+        walls.append((time.perf_counter() - t0) * 1e3)
     row = {"phase": "remote_window_profile", "rows": rows,
            "tokens": int(batch["tokens"].shape[1]),
-           "wall_ms": statistics.median(walls), "traced_wall_ms": traced_ms,
-           "device_busy_ms": busy_ms if kern else None,
-           "device_busy_share": busy_ms / traced_ms if kern else None,
-           "top_kernels_ms": [[k, round(ms, 4), n] for k, ms, n in kern[:8]]}
+           "wall_ms": statistics.median(walls), **device_profile(window)}
     log(row)
     return row
+
+
+def top2_gap(logits: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(logits.float(), 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def generate_phase(dev, stack) -> dict:
+    """Greedy generation with yi-6b at full width on the serve stack's
+    weights: GEN_ROWS prompts of GEN_PROMPT tokens, GEN_TOKENS new tokens.
+    Asserts shapes, finite likelihoods in (0, 1], the kernels' launches
+    on that run, that a teacher-forced replay of the decode loop on the
+    generated tokens picks those same tokens (so what is timed and
+    compared below is the main path's run), that each step's replayed
+    decode logits lie within GEN_LOGIT_TOL of a fresh prefill's over
+    the prompt and the tokens before it, and that each decoded token is
+    what that prefill picks wherever its top-2 gap exceeds GEN_LOGIT_TOL.
+    Times the decode steps of the replay, profiles one, and applies the
+    2nd supervisor (seq_min_likelihood) to the answers."""
+    from repro_torch.core.supervisors import seq_min_likelihood
+    from repro_torch.core.thresholds import nominal_quantile_threshold
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.maxconf.ops import maxconf
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.generate import graft, greedy_generate
+    cfg, params = stack.rcfg, stack.rparams
+    n_l = cfg.num_layers
+    prompt = np.random.default_rng(25).integers(
+        1, cfg.vocab_size, (GEN_ROWS, GEN_PROMPT))
+    batch = {"tokens": prompt}
+    greedy_generate(cfg, params, batch, 2)          # warm-up (cuBLAS plans)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    # the main path
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, liks = greedy_generate(cfg, params, batch, GEN_TOKENS)
+    torch.cuda.synchronize(dev)
+    wall_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    assert toks.shape == liks.shape == (GEN_ROWS, GEN_TOKENS), toks.shape
+    assert toks.dtype == torch.int32 and liks.dtype == torch.float32
+    assert bool(torch.isfinite(liks).all()), "non-finite likelihoods"
+    assert bool(((liks > 0) & (liks <= 1)).all()), "likelihood outside (0,1]"
+    assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    want = {"decode_attention": n_l * (GEN_TOKENS - 1),
+            "maxconf": GEN_TOKENS, "flash_attention": n_l}
+    for name, n in want.items():
+        assert counts[name] == n, f"{name}: {counts[name]} launches, not {n}"
+
+    # decode steps alone, teacher-forced on the generated tokens (per-step
+    # host clock around work that ends in a synchronize); keeps each
+    # step's logits for the comparison with fresh prefills below
+    with torch.no_grad():
+        lg0, pc = T.prefill(cfg, params, batch)
+        cache = graft(T.make_cache(cfg, GEN_ROWS, GEN_PROMPT + GEN_TOKENS,
+                                   dev), pc)
+        dec_logits, step_ms = [lg0], []
+        replay = torch.zeros_like(toks)
+        replay[:, 0] = maxconf(lg0)["prediction"]
+        for i in range(GEN_TOKENS - 1):
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            lg, cache = T.decode_step(cfg, params, toks[:, i], cache,
+                                      GEN_PROMPT + i)
+            replay[:, i + 1] = maxconf(lg)["prediction"]
+            torch.cuda.synchronize(dev)
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            dec_logits.append(lg)
+        # the replay picks the tokens it was fed: it is the main path's run
+        assert torch.equal(replay, toks), \
+            f"replay picks {int((replay != toks).sum())} tokens differently"
+
+        def one_step():
+            with torch.no_grad():
+                lg, _ = T.decode_step(cfg, params, toks[:, -2], cache,
+                                      GEN_PROMPT + GEN_TOKENS - 2)
+                maxconf(lg)
+            torch.cuda.synchronize(dev)
+
+        profile = device_profile(one_step)
+
+        # self-consistency: token i == argmax of a fresh prefill over
+        # prompt + tokens[:i] where that prefill's top-2 gap allows it
+        seq = torch.as_tensor(prompt, device=dev)
+        checked = agree = 0
+        diffs = []
+        for i in range(GEN_TOKENS):
+            lp, _ = T.prefill(cfg, params, {"tokens": seq})
+            gap = top2_gap(lp)
+            ok = gap > GEN_LOGIT_TOL
+            hit = lp.argmax(-1).to(torch.int32) == toks[:, i]
+            checked += int(ok.sum())
+            agree += int((ok & hit).sum())
+            assert bool(hit[ok].all()), \
+                f"step {i}: decoded token differs from a fresh prefill " \
+                f"with a top-2 gap above {GEN_LOGIT_TOL}"
+            diffs.append(float((dec_logits[i] - lp).abs().max()))
+            seq = torch.cat([seq, toks[:, i:i + 1].long()], dim=1)
+        torch.cuda.synchronize(dev)
+    pairs = GEN_ROWS * GEN_TOKENS
+    assert max(diffs) <= GEN_LOGIT_TOL, \
+        f"decode and prefill logits differ by {max(diffs)}"
+    assert checked >= pairs // 8, \
+        f"only {checked} of {pairs} tokens had a decisive prefill gap"
+
+    conf = seq_min_likelihood(liks).cpu().numpy()
+    t_remote = nominal_quantile_threshold(conf, 0.25)
+    med_ms = statistics.median(step_ms)
+    out = {"phase": "generate", "config": cfg.name, "layers": n_l,
+           "rows": GEN_ROWS, "prompt": GEN_PROMPT, "new_tokens": GEN_TOKENS,
+           "wall_s": wall_s,
+           "tokens_per_s_end_to_end": GEN_ROWS * GEN_TOKENS / wall_s,
+           "decode_step_ms_median": med_ms,
+           "decode_step_ms_range": [min(step_ms), max(step_ms)],
+           "decode_tokens_per_s": GEN_ROWS / med_ms * 1e3,
+           "peak_mem_gib": peak_gib, "launches": counts,
+           "prefill_checked": checked, "prefill_agree": agree,
+           "pairs": pairs, "logit_tol": GEN_LOGIT_TOL,
+           "decode_vs_prefill_max_logit_diff": max(diffs),
+           "replay_agree": int((replay == toks).sum()),
+           "seq_min_likelihood": conf.tolist(), "t_remote": t_remote,
+           "accepted": int((conf > t_remote).sum()),
+           "rejected": int((conf <= t_remote).sum())}
+    log(out)
+    out["decode_step_profile"] = prof_row = {
+        "phase": "decode_step_profile", "rows": GEN_ROWS,
+        "kv_slots": GEN_PROMPT + GEN_TOKENS, **profile}
+    log(prof_row)
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -528,18 +834,28 @@ SOURCES = {
                         "src/repro/kernels/fused_head_gate/kernel.py:41"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:31"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention/kernel.py:27"),
+    "maxconf": ("src/repro_torch/csrc/maxconf.cu",
+                "src/repro/kernels/maxconf/kernel.py:36"),
 }
 
 
-def kernels_line(kern: dict, serve: dict) -> dict:
-    """One entry per kernel at the shape the serving path gives it."""
+def kernels_line(kern: dict, serve: dict, gen: dict) -> dict:
+    """One entry per kernel at the shape its path gives it: the serving
+    path's kernels with the serve run's launches, the generate path's
+    with the generate run's."""
     path_rows = {"gate_score": kern["gate_path"]["gate_score"],
                  "gate_select": kern["gate_path"]["gate_select"],
                  "fused_head_gate": kern["head_path"],
-                 "flash_attention": kern["flash_8x48_bfloat16"]}
+                 "flash_attention": kern["flash_8x48_bfloat16"],
+                 "decode_attention": kern["decode_path_bfloat16"],
+                 "maxconf": kern["maxconf_path"]}
     launches = dict(serve["main"]["launches"])
     launches["fused_head_gate"] = serve["fused_head"]["launches"][
         "fused_head_gate"]
+    for name in ("decode_attention", "maxconf"):
+        launches[name] = gen["launches"][name]
     out = []
     for name, row in path_rows.items():
         src, repl = SOURCES[name]
@@ -584,8 +900,11 @@ def main() -> int:
 
     RESULTS["phases"]["kernels"] = kern = kernel_phase(dev)
     RESULTS["phases"]["model"] = model_phase(dev)
-    RESULTS["phases"]["serve"] = serve = serve_phase(dev)
-    line = kernels_line(kern, serve)
+    RESULTS["phases"]["decode_model"] = decode_model_phase(dev)
+    serve, stack = serve_phase(dev)
+    RESULTS["phases"]["serve"] = serve
+    RESULTS["phases"]["generate"] = gen = generate_phase(dev, stack)
+    line = kernels_line(kern, serve, gen)
     RESULTS["kernels"] = line["kernels"]
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

@@ -29,34 +29,7 @@
 
 namespace {
 
-constexpr int kScoreThreads = 256;
 constexpr int kSelectThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kScoreThreads)
-gate_score_kernel(const T* __restrict__ logits, int C, int nsplit,
-                  GateStats* __restrict__ part) {
-  __shared__ GateStats warp_stats[kScoreThreads / 32];
-  const int row = blockIdx.y;
-  const int split = blockIdx.x;
-  const int chunk = (C + nsplit - 1) / nsplit;
-  const int c0 = split * chunk;
-  const int c1 = min(C, c0 + chunk);
-  const T* x = logits + (size_t)row * C;
-
-  GateStats st = gate_empty();
-  for (int c = c0 + threadIdx.x; c < c1; c += kScoreThreads)
-    gate_push(st, to_f32(x[c]), c);
-  st = gate_warp_reduce(st);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) warp_stats[warp] = st;
-  __syncthreads();
-  if (warp == 0) {
-    st = lane < kScoreThreads / 32 ? warp_stats[lane] : gate_empty();
-    st = gate_warp_reduce(st);
-    if (lane == 0) part[(size_t)row * nsplit + split] = st;
-  }
-}
 
 __device__ __forceinline__ void argmin_step(float& v, int& i, float ov,
                                             int oi) {
@@ -116,15 +89,8 @@ extern "C" int gate_score(const void* logits, int dtype, int B, int C,
                           int nsplit, int sup, void* part, void* conf,
                           void* pred, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(nsplit, B);
   GateStats* p = static_cast<GateStats*>(part);
-  if (dtype == DT_F32)
-    gate_score_kernel<float><<<grid, kScoreThreads, 0, s>>>(
-        static_cast<const float*>(logits), C, nsplit, p);
-  else
-    gate_score_kernel<__nv_bfloat16><<<grid, kScoreThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(logits), C, nsplit, p);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_gate_partial(logits, dtype, B, C, nsplit, p, s);
   if (err != cudaSuccess) return err;
   return launch_gate_finish(p, B, nsplit, sup, static_cast<float*>(conf),
                             static_cast<int*>(pred), s);

@@ -104,18 +104,71 @@ __device__ __forceinline__ float gate_conf(const GateStats& st, int sup) {
   }
 }
 
+// First pass, with the class axis split: grid = (nsplit, rows); block
+// (split, row) folds the columns [split * chunk, (split + 1) * chunk) of
+// its row (ragged edge masked here, no padding copy) into one partial
+// GateStats at part[row * nsplit + split].
+constexpr int kGateThreads = 256;
+
+template <typename T>
+static __global__ void __launch_bounds__(kGateThreads)
+gate_partial_kernel(const T* __restrict__ logits, int C, int nsplit,
+                    GateStats* __restrict__ part) {
+  __shared__ GateStats warp_stats[kGateThreads / 32];
+  const int row = blockIdx.y;
+  const int split = blockIdx.x;
+  const int chunk = (C + nsplit - 1) / nsplit;
+  const int c0 = split * chunk;
+  const int c1 = min(C, c0 + chunk);
+  const T* x = logits + (size_t)row * C;
+
+  GateStats st = gate_empty();
+  for (int c = c0 + threadIdx.x; c < c1; c += kGateThreads)
+    gate_push(st, to_f32(x[c]), c);
+  st = gate_warp_reduce(st);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) warp_stats[warp] = st;
+  __syncthreads();
+  if (warp == 0) {
+    st = lane < kGateThreads / 32 ? warp_stats[lane] : gate_empty();
+    st = gate_warp_reduce(st);
+    if (lane == 0) part[(size_t)row * nsplit + split] = st;
+  }
+}
+
+static inline cudaError_t launch_gate_partial(const void* logits, int dtype,
+                                              int B, int C, int nsplit,
+                                              GateStats* part,
+                                              cudaStream_t stream) {
+  const dim3 grid(nsplit, B);
+  if (dtype == DT_F32)
+    gate_partial_kernel<float><<<grid, kGateThreads, 0, stream>>>(
+        static_cast<const float*>(logits), C, nsplit, part);
+  else
+    gate_partial_kernel<__nv_bfloat16><<<grid, kGateThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(logits), C, nsplit, part);
+  return cudaGetLastError();
+}
+
+// merge the nsplit partial statistics of one row: one warp, lanes striding
+// over the splits; lane 0 returns the row's statistics
+__device__ __forceinline__ GateStats gate_merge_row(
+    const GateStats* __restrict__ part, int row, int nsplit, int lane) {
+  GateStats st = gate_empty();
+  for (int j = lane; j < nsplit; j += 32)
+    st = gate_merge(st, part[(size_t)row * nsplit + j]);
+  return gate_warp_reduce(st);
+}
+
 // Second pass: merge the nsplit partial statistics of each row (one warp
-// per row, lanes striding over the splits) and apply the epilogue.
+// per row) and apply the supervisor's epilogue.
 static __global__ void __launch_bounds__(128)
 gate_finish_kernel(const GateStats* __restrict__ part, int B, int nsplit,
                    int sup, float* __restrict__ conf, int* __restrict__ pred) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
   if (row >= B) return;  // warp-uniform
-  GateStats st = gate_empty();
-  for (int j = lane; j < nsplit; j += 32)
-    st = gate_merge(st, part[(size_t)row * nsplit + j]);
-  st = gate_warp_reduce(st);
+  const GateStats st = gate_merge_row(part, row, nsplit, lane);
   if (lane == 0) {
     conf[row] = gate_conf(st, sup);
     pred[row] = st.a1;

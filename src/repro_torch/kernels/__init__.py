@@ -1,23 +1,29 @@
-"""Hand-written CUDA kernels for Hopper (sm_90a) on the cascade's path.
+"""Hand-written CUDA kernels for Hopper (sm_90a) on the cascade's serving
+and generate paths.
 
 Each kernel package keeps ``kernel.py`` (ctypes wrapper of the CUDA
 source under ``csrc/``), ``ops.py`` (dispatch on the tensor's device:
 the kernel for a CUDA tensor, the plain version for a CPU tensor) and
 ``ref.py`` (the plain PyTorch version). ``ops.LAUNCHES`` counts kernel
 launches; ``launch_counts``/``reset_launch_counts`` read and clear them
-all.
+all. A wrapper named like its package (``confidence_gate``, ``maxconf``)
+is imported from that package's ``ops``, so that no function here
+shadows a subpackage.
 """
 
 from repro_torch.kernels.build import LAUNCH_LOCK
 from repro_torch.kernels.confidence_gate import ops as _gate_ops
-from repro_torch.kernels.confidence_gate.ops import confidence_gate
+from repro_torch.kernels.decode_attention import ops as _decode_ops
+from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention import ops as _flash_ops
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.fused_head_gate import ops as _head_ops
 from repro_torch.kernels.fused_head_gate.ops import (FusedLocalHead,
                                                      fused_head_gate)
+from repro_torch.kernels.maxconf import ops as _maxconf_ops
 
-_COUNTERS = (_gate_ops.LAUNCHES, _head_ops.LAUNCHES, _flash_ops.LAUNCHES)
+_COUNTERS = (_gate_ops.LAUNCHES, _head_ops.LAUNCHES, _flash_ops.LAUNCHES,
+             _decode_ops.LAUNCHES, _maxconf_ops.LAUNCHES)
 
 
 def launch_counts() -> dict[str, int]:
@@ -35,5 +41,5 @@ def reset_launch_counts() -> None:
                 c[name] = 0
 
 
-__all__ = ["confidence_gate", "fused_head_gate", "FusedLocalHead",
-           "attention", "launch_counts", "reset_launch_counts"]
+__all__ = ["fused_head_gate", "FusedLocalHead", "attention", "decode_attn",
+           "launch_counts", "reset_launch_counts"]

@@ -1,5 +1,6 @@
 """Model substrate (dense attention family) for the port."""
 
-from repro_torch.models.transformer import forward, init_params, prefill
+from repro_torch.models.transformer import (decode_step, forward, init_params,
+                                            make_cache, prefill)
 
-__all__ = ["init_params", "forward", "prefill"]
+__all__ = ["init_params", "forward", "prefill", "make_cache", "decode_step"]

@@ -11,8 +11,9 @@ pairs); the plain ``gqa_attention`` keeps logits and softmax in fp32 even
 for bf16 inputs (JAX's ``preferred_element_type=f32``), rounds the
 probabilities to the value dtype before the PV product, and accumulates
 that product in fp32. Full-sequence attention in ``attn_forward`` /
-``attn_prefill`` goes through ``kernels.flash_attention`` (the Hopper
-kernel for a CUDA tensor).
+``attn_prefill`` goes through ``kernels.flash_attention`` and one-token
+attention over the cache in ``attn_decode`` through
+``kernels.decode_attention`` (the Hopper kernels for a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention.ops import attention
 
 Params = dict
@@ -198,6 +200,46 @@ def attn_prefill(cfg: ModelConfig, p: Params, x, positions):
         k = torch.roll(k[:, -w:], shifts=t % w, dims=1)
         v = torch.roll(v[:, -w:], shifts=t % w, dims=1)
     return out, (k, v)
+
+
+def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
+                  device: torch.device) -> Params:
+    """Contiguous zeroed KV cache [L, B, slots, K, hd] on ``device``. SWA
+    caches only the window (ring buffer of ``min(max_len, window)``
+    slots)."""
+    slots = min(max_len, cfg.sliding_window) if cfg.sliding_window \
+        else max_len
+    shape = (cfg.num_layers, batch, slots, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_inputs(cfg: ModelConfig, pos: int, batch: int, slots: int,
+                  device: torch.device):
+    """A decode step's (positions [1], kv_len [B] int32) for a new token at
+    ``pos`` over a cache of ``slots``: built once per step, shared by every
+    layer's ``attn_decode``."""
+    # ring buffer: every stored slot is within the window -> all valid
+    valid = min(pos + 1, slots) if cfg.sliding_window else pos + 1
+    return (torch.full((1,), pos, device=device),
+            torch.full((batch,), valid, dtype=torch.int32, device=device))
+
+
+def attn_decode(cfg: ModelConfig, p: Params, x, k_cache, v_cache, pos: int,
+                positions, kv_len):
+    """One-token decode. x: [B,1,D]; caches [B,slots,K,hd]; pos: absolute
+    position of the new token, with ``positions``/``kv_len`` from
+    ``decode_inputs``. The new k/v are written IN PLACE at slot
+    ``pos % slots`` (SWA ring buffer) or ``pos``; returns (out, k_cache,
+    v_cache) with the same cache tensors."""
+    b = x.shape[0]
+    q, k, v = _qkv(cfg, p, x, positions)
+    slot = pos % k_cache.shape[1] if cfg.sliding_window else pos
+    k_cache[:, slot] = k[:, 0]
+    v_cache[:, slot] = v[:, 0]
+    out = decode_attn(q[:, 0], k_cache, v_cache, kv_len)
+    return dense(p["wo"], out.reshape(b, 1, -1)), k_cache, v_cache
 
 
 # --------------------------------------------------------------------------

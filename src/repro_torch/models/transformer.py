@@ -2,15 +2,19 @@
 
 Plain functions over the JAX package's parameter tree:
 
-    init_params(cfg, gen)          -> params
-    forward(cfg, params, batch)    -> (final hidden [B,T,D], aux)
-    prefill(cfg, params, batch)    -> (last-position logits, cache)
+    init_params(cfg, gen)                        -> params
+    forward(cfg, params, batch)                  -> (final hidden [B,T,D], aux)
+    prefill(cfg, params, batch)                  -> (last-position logits, cache)
+    make_cache(cfg, batch, max_len, device)      -> zeroed serving cache
+    decode_step(cfg, params, token, cache, pos)  -> (logits [B,V], cache)
 
 Layer weights are stacked ``[L, ...]`` as in ``repro.models.transformer``;
 where JAX scans over the stack, the port loops over ``l`` and indexes the
 stacked tensors (views — the weights are never copied into per-layer
-modules). ``decode_step``/``make_cache`` and the moe, mla, mamba2, rwkv6
-and frontend families come with later slices of the port.
+modules). ``decode_step`` writes the new token's keys and values into the
+cache in place (JAX returns a new cache; the port returns the same one).
+The moe, mla, mamba2, rwkv6 and frontend families, and ``decode_step`` on
+``[B, D]`` embeddings, come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -20,10 +24,12 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (Params, attention_params, attn_forward,
-                                       attn_prefill, dense, dense_params,
-                                       normal, rms_norm, swiglu,
-                                       swiglu_params)
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import (Params, attention_params, attn_decode,
+                                       attn_forward, attn_prefill, dense,
+                                       decode_inputs, dense_params,
+                                       make_kv_cache, normal, rms_norm,
+                                       swiglu, swiglu_params)
 from repro_torch.tree import tree_map
 
 Batch = dict[str, Any]
@@ -116,3 +122,39 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache = {"main": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     return _head_logits(params, x[:, -1]), cache
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: str | torch.device = "cuda"):
+    """Zeroed serving cache {"main": {"k", "v": [L, B, slots, K, hd]}} in
+    the config's dtype (``slots = min(max_len, window)`` under SWA)."""
+    _check_family(cfg)
+    return {"main": make_kv_cache(cfg, batch, max_len, DTYPES[cfg.dtype],
+                                  device=resolve_device(device))}
+
+
+def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
+    """One new token. token: [B] int (on the params' device, or host
+    ints); pos: absolute position of the token. Writes its keys and values
+    into ``cache`` in place; returns (logits [B, V] fp32, cache)."""
+    _check_family(cfg)
+    if not cfg.supports_decode:
+        raise ValueError(f"{cfg.name} is encoder-only")
+    token = torch.as_tensor(token, device=params["embed"].device)
+    if token.dim() != 1:
+        raise NotImplementedError("decode_step on [B, D] embeddings comes "
+                                  "with the frontend families")
+    x = params["embed"][token.long()][:, None, :]
+    kc, vc = cache["main"]["k"], cache["main"]["v"]
+    positions, kv_len = decode_inputs(cfg, pos, x.shape[0], kc.shape[2],
+                                      kc.device)
+    for i in range(_num_layers(params)):
+        lp = _layer(params["blocks"], i)
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        a, _, _ = attn_decode(cfg, lp["attn"], h, kc[i], vc[i], pos,
+                              positions, kv_len)
+        x = x + a
+        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+        x = x + swiglu(lp["mlp"], h)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _head_logits(params, x[:, 0]), cache

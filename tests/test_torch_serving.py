@@ -108,11 +108,24 @@ def assert_gapped(conf: np.ndarray, cut: float, what: str) -> None:
     assert np.abs(conf - cut).min() > GAP, f"inputs: {what} too close"
 
 
+REMOTE_TIMEOUT = ["transport.timeout_s=300"]
+
+
 def serve_both(world, overrides: dict, local=None):
-    """Serve the same requests through both packages' ServeConfig.build."""
+    """Serve the same requests through both packages' ServeConfig.build.
+
+    The transport's window deadline is raised far above any compile time:
+    the JAX remote tier compiles at each new window shape, and on a loaded
+    host that outlasts the default 2 s, which would turn a window into a
+    fallback in one package only. Each run then asserts that no window was
+    lost to the transport, so a timeout names itself instead of showing up
+    as a routing mismatch."""
     base = dict(batch_size=BATCH, remote_fraction_budget=1.0)
     base.update(overrides)
     jcfg, tcfg = JaxServeConfig(**base), ServeConfig(**base)
+    if not base.get("fused"):
+        jcfg = jcfg.with_overrides(REMOTE_TIMEOUT)
+        tcfg = tcfg.with_overrides(REMOTE_TIMEOUT)
     out = []
     for pkg, cfg in (("jax", jcfg), ("torch", tcfg)):
         if pkg == "jax":
@@ -139,6 +152,10 @@ def serve_both(world, overrides: dict, local=None):
             responses = sched.flush()
         finally:
             eng.close()
+        assert eng.stats.transport_failures == 0, (pkg, eng.stats)
+        for backend in eng.router or ():
+            assert backend.stats.timeouts == 0, (pkg, backend.name,
+                                                 backend.stats)
         out.append((sorted(responses, key=lambda r: r.uid), eng.stats))
     return out
 
