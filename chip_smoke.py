@@ -8,13 +8,14 @@ toolkit. In order, it
 1. requires a CUDA device and prints the card's name and power limit;
 2. builds every hand-written kernel from ``src/repro_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
-   serving and generate paths' shapes and at yi-6b's widths (and a
-   16384-token cache for decode attention), and times kernel, plain
-   version and (where one PyTorch call computes the same function) the
-   library call with CUDA events;
+   serving and generate paths' shapes and at yi-6b's and rwkv6-1.6b's
+   widths (and a 16384-token cache for decode attention, and MDSA at
+   [256, 4096] x [4096, 4096]), and times kernel, plain version and
+   (where one PyTorch call computes the same function) the library call
+   with CUDA events;
 4. checks the remote model's prefill and its decode steps on the card
    against the CPU on reduced configs (yi-6b; h2o-danube, whose
-   sliding-window ring buffer wraps), then serves 256 requests through
+   sliding-window ring buffer wraps; rwkv6), then serves 256 requests through
    ``repro_torch.launch.serve`` with yi-6b at full width as the remote
    tier, and 64 more through an engine whose local tier is a
    ``FusedLocalHead`` over the same surrogate, asserting that every
@@ -26,7 +27,14 @@ toolkit. In order, it
    decoded token is what a fresh prefill picks wherever its logit gap
    decides it; times the decode steps, profiles one, and applies the 2nd
    supervisor (``seq_min_likelihood``) to the answers;
-6. prints one ``{"kernels": [...]}`` line and, last, one
+6. mirrors ``benchmarks/supervisor_comparison.py`` on the card: trains a
+   surrogate, fits MDSA on its training-set activations, scores the test
+   set through the MDSA kernel and prints every supervisor's AUC-ROC;
+7. frees yi-6b, then serves 256 requests with rwkv6-1.6b at full width
+   as the remote tier (the RWKV6 scan kernel once per layer per remote
+   window) and generates 32 tokens for 8 prompts of 512 tokens with it,
+   with the checks of steps 4 and 5;
+8. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line. Full results are also
@@ -35,6 +43,7 @@ written to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -61,6 +70,18 @@ GEN_ROWS, GEN_PROMPT, GEN_TOKENS = 8, 512, 32   # the generate phase
 # difference measured on an H100, 0.10), and a decoded token is checked
 # against a fresh prefill wherever that prefill's top-2 gap exceeds it
 GEN_LOGIT_TOL = 0.25
+# the same rule for rwkv6-1.6b, whose largest difference on an H100 was
+# 0.227. Its prefill top-2 gaps are smaller (median 0.16, 90th
+# percentile 0.5), so only ~8% of its tokens clear 0.6: the floor on how
+# many are checked is a 32nd of them (an 8th for yi-6b)
+RWKV_GEN_LOGIT_TOL = 0.6
+RWKV_ARCH = "rwkv6-1.6b"
+# the RWKV6 scan against its plain version in f32 on the same inputs:
+# |got - want| <= RWKV_TOL * max|want| + 1e-5 (fp32 sums of M products in
+# another order and FMA contraction in the state update, a few ulp per
+# step)
+RWKV_TOL = 2e-5
+MDSA_RTOL = 1e-4       # fp32 quadratic forms summed in another order
 # decode attention vs its plain version in f32 on the same inputs:
 # |got - want| <= rtol * |want| + atol. bf16: one rounding of the output
 # (at most 2^-8 relative), and atol for the fp32 sums; the limit shrinks
@@ -386,6 +407,135 @@ def check_maxconf(dev, b: int, v: int, seed: int) -> dict:
     return row
 
 
+def scan_inputs(dev, b: int, t: int, h: int, m: int, dtype, seed: int):
+    """r, k, v (dtype) at scale 0.5; w = exp(-exp(n - 3)) in (0, 1), from
+    fast to slow decay as the model's data-dependent decay spreads it;
+    u, s0 f32 (a carried state)."""
+    rng = np.random.default_rng(seed)
+    mk = lambda shape, scale, dt: (torch.from_numpy(  # noqa: E731
+        (scale * rng.standard_normal(shape)).astype(np.float32))
+        .to(dev).to(dt))
+    shape = (b, t, h, m)
+    r, k, v = (mk(shape, 0.5, dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(mk(shape, 1.0, torch.float32) - 3.0))
+    return r, k, v, w, mk((h, m), 0.5, torch.float32), \
+        mk((b, h, m, m), 0.5, torch.float32)
+
+
+def scan_err(got, want) -> tuple[float, float]:
+    """(max abs error over y and s_T, its share of the limit
+    RWKV_TOL * max|want| + 1e-5, per output)."""
+    errs, used = [], []
+    for g, x in zip(got, want):
+        e = float((g - x).abs().max())
+        errs.append(e)
+        used.append(e / (RWKV_TOL * float(x.abs().max()) + 1e-5))
+    return max(errs), max(used)
+
+
+def check_rwkv6_scan(dev, b: int, t: int, h: int, m: int, dtype,
+                     seed: int, aliased: bool = False) -> dict:
+    """The scan at [B, T, H, M] against its plain version in f32 on the
+    same inputs; ``aliased`` passes s0 as s_out too (decode's in-place
+    state update)."""
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    r, k, v, w, u, s0 = scan_inputs(dev, b, t, h, m, dtype, seed)
+    want = rwkv6_scan_ref(r.float(), k.float(), v.float(), w, u, s0)
+    if aliased:
+        state = s0.clone()
+        y, s_t = rk.rwkv6_scan(r, k, v, w, u, state, state)
+        assert s_t.data_ptr() == state.data_ptr()
+    else:
+        y, s_t = rk.rwkv6_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    err, used = scan_err((y, s_t), want)
+    tag = f"[{b},{t},{h},{m}] {dtype} aliased={aliased}"
+    assert used <= 1, f"rwkv6 scan {tag} max err {err} ({used:.2f} of limit)"
+    out = torch.empty_like(s0)
+    k_ms = time_ms(lambda: rk.rwkv6_scan(r, k, v, w, u, s0, out),
+                   samples=21, inner=3 if t > 64 else 10)
+    p_ms = time_ms(lambda: rwkv6_scan_ref(r, k, v, w, u, s0), samples=21,
+                   inner=1, warmup=2)
+    n_tok = b * t * h
+    esz = r.element_size()
+    bnd, by = bound(n_tok * m * (3 * esz + 4 + 4) + 4 * h * m
+                    + 2 * 4 * b * h * m * m,
+                    n_tok * (4.0 * m * m + 5.0 * m), "fp32")
+    row = {"kernel": "rwkv6_scan", "shape": [b, t, h, m],
+           "dtype": f"r/k/v {str(dtype).split('.')[-1]}, w/u/state float32",
+           "aliased_state": aliased, "max_abs_err": err,
+           "share_of_limit": used, "rtol_of_max": RWKV_TOL,
+           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+           "bound_ms": bnd, "bound_by": by}
+    log(row)
+    return row
+
+
+def check_rwkv6_carry(dev) -> dict:
+    """Scanning a GEN_PROMPT-token sequence in three pieces (the middle one
+    a single token) with the state carried in place equals scanning the
+    whole, both on the kernel."""
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    r, k, v, w, u, s0 = scan_inputs(dev, 8, GEN_PROMPT, 32, 64,
+                                    torch.bfloat16, seed=31)
+    y_full, s_full = rk.rwkv6_scan(r, k, v, w, u, s0)
+    state = s0.clone()
+    cut = GEN_PROMPT * 2 // 5
+    ys = [rk.rwkv6_scan(*(z[:, a:e].contiguous() for z in (r, k, v, w)), u,
+                        state, state)[0]
+          for a, e in ((0, cut), (cut, cut + 1), (cut + 1, GEN_PROMPT))]
+    torch.cuda.synchronize()
+    err, used = scan_err((torch.cat(ys, 1), state), (y_full, s_full))
+    row = {"kernel": "rwkv6_scan", "check": "state carry, 3 pieces vs whole",
+           "shape": [8, GEN_PROMPT, 32, 64], "max_abs_err": err,
+           "share_of_limit": used}
+    log(row)
+    assert used <= 1, f"rwkv6 scan state carry: max err {err}"
+    return row
+
+
+def check_mdsa(dev, b: int, d: int, seed: int) -> dict:
+    """MDSA distance at [B, D] x [D, D] (P symmetric positive definite)
+    against its plain version with TF32 off; library: one einsum on
+    y = x - mu."""
+    from repro_torch.kernels.mdsa import kernel as mk
+    from repro_torch.kernels.mdsa.ref import mdsa_ref
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((d, d), np.float32)).to(dev)
+    prec = (a @ a.T) * (0.09 / d) + torch.eye(d, device=dev)
+    del a
+    x = torch.from_numpy(rng.standard_normal((b, d), np.float32)).to(dev)
+    mean = torch.from_numpy(
+        (0.3 * rng.standard_normal(d)).astype(np.float32)).to(dev)
+    got = mk.mdsa(x, mean, prec)
+    want = mdsa_ref(x, mean, prec)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    used = float(((got - want).abs() / (MDSA_RTOL * want.abs()
+                                        + MDSA_RTOL)).max())
+    tag = f"[{b},{d}]x[{d},{d}]"
+    assert got.shape == (b,) and used <= 1, \
+        f"mdsa {tag} max err {err} ({used:.2f} of the limit)"
+    inner = 3 if d >= 1024 else 10
+    k_ms = time_ms(lambda: mk.mdsa(x, mean, prec), samples=21, inner=inner)
+    p_ms = time_ms(lambda: mdsa_ref(x, mean, prec), samples=21, inner=inner)
+    y = x - mean
+    lib_ms = time_ms(lambda: torch.einsum("bd,de,be->b", y, prec, y),
+                     samples=21, inner=inner)
+    bnd, by = bound(4.0 * (b * d + d + d * d + b),
+                    2.0 * b * d * d + 3.0 * b * d, "fp32")
+    row = {"kernel": "mdsa", "shape": [[b, d], [d, d]], "dtype": "float32",
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "max_abs_err": err, "rtol": MDSA_RTOL, "atol": MDSA_RTOL,
+           "share_of_limit": used, "kernel_ms": k_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "library": "einsum bd,de,be->b on x - mu",
+           "bound_ms": bnd, "bound_by": by}
+    log(row)
+    return row
+
+
 def kernel_phase(dev) -> dict:
     out = {"gate_path": check_gate(dev, 32, 8, seed=11),
            "gate_yi6b": check_gate(dev, 32, 64000, seed=12),
@@ -418,6 +568,21 @@ def kernel_phase(dev) -> dict:
     out["decode_long"] = check_decode(dev, 8, 16384, torch.bfloat16, seed=21)
     out["maxconf_path"] = check_maxconf(dev, GEN_ROWS, 64000, seed=22)
     out["maxconf_152k"] = check_maxconf(dev, 32, 152064, seed=23)
+    # rwkv6-1.6b's time mix (32 heads of 64): the generate prefill, a
+    # serve window of 8 x 48, a decode step with the state in place
+    out["rwkv6_prefill"] = check_rwkv6_scan(
+        dev, GEN_ROWS, GEN_PROMPT, 32, 64, torch.bfloat16, seed=26)
+    out["rwkv6_window"] = check_rwkv6_scan(dev, 8, 48, 32, 64,
+                                           torch.bfloat16, seed=27)
+    out["rwkv6_decode_aliased"] = check_rwkv6_scan(
+        dev, GEN_ROWS, 1, 32, 64, torch.bfloat16, seed=28, aliased=True)
+    out["rwkv6_carry"] = check_rwkv6_carry(dev)
+    # MDSA: the supervisor phase's shape (1024 test rows of a 64-wide
+    # penultimate layer), yi-6b's width, and ragged shapes
+    out["mdsa_path"] = check_mdsa(dev, 1024, 64, seed=29)
+    out["mdsa_4096"] = check_mdsa(dev, 256, 4096, seed=30)
+    for b, d in ((8, 64), (128, 128), (100, 200), (1, 32)):
+        out[f"mdsa_{b}x{d}"] = check_mdsa(dev, b, d, seed=b + d)
     return out
 
 
@@ -425,42 +590,52 @@ def kernel_phase(dev) -> dict:
 # model and serve phases
 # ----------------------------------------------------------------------------
 
-def model_phase(dev) -> dict:
-    """Reduced yi-6b prefill: the card (kernels) against the CPU (plain
-    versions) on the same weights and tokens."""
+def cache_err(card: dict, cpu: dict) -> float:
+    """Largest difference between two caches' leaves (the KV cache's k
+    and v, or the RWKV6 state's wkv, tm_prev and cm_prev)."""
+    from repro_torch.tree import tree_leaves
+    return max(float((g.cpu() - c).abs().max())
+               for g, c in zip(tree_leaves(card), tree_leaves(cpu)))
+
+
+def model_phase(dev) -> list[dict]:
+    """Reduced yi-6b and rwkv6 prefill: the card (kernels) against the CPU
+    (plain versions) on the same weights and tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
-    cfg = get_config("yi-6b").reduced()
-    params = T.init_params(cfg, torch.Generator("cpu").manual_seed(3))
-    toks = np.random.default_rng(17).integers(1, cfg.vocab_size, (3, 40))
-    with torch.no_grad():
-        lc, cc = T.prefill(cfg, params, {"tokens": toks})
-        lg, cg = T.prefill(cfg, tree_map(lambda a: a.to(dev), params),
-                           {"tokens": toks})
-    torch.cuda.synchronize()
-    err = max(float((lg.cpu() - lc).abs().max()),
-              float((cg["main"]["k"].cpu() - cc["main"]["k"]).abs().max()),
-              float((cg["main"]["v"].cpu() - cc["main"]["v"]).abs().max()))
-    row = {"phase": "model", "config": cfg.name, "max_abs_err": err,
-           "atol": 1e-3}
-    log(row)
-    assert err <= 1e-3, f"reduced prefill card vs cpu: {err}"
-    return row
+    rows = []
+    for arch in ("yi-6b", RWKV_ARCH):
+        cfg = get_config(arch).reduced()
+        params = T.init_params(cfg, torch.Generator("cpu").manual_seed(3))
+        toks = np.random.default_rng(17).integers(1, cfg.vocab_size, (3, 40))
+        with torch.no_grad():
+            lc, cc = T.prefill(cfg, params, {"tokens": toks})
+            lg, cg = T.prefill(cfg, tree_map(lambda a: a.to(dev), params),
+                               {"tokens": toks})
+        torch.cuda.synchronize()
+        err = max(float((lg.cpu() - lc).abs().max()), cache_err(cg, cc))
+        row = {"phase": "model", "config": cfg.name, "max_abs_err": err,
+               "atol": 1e-3}
+        log(row)
+        assert err <= 1e-3, f"reduced prefill card vs cpu ({arch}): {err}"
+        rows.append(row)
+    return rows
 
 
 def decode_model_phase(dev) -> list[dict]:
-    """Reduced yi-6b and reduced h2o-danube (prompt 96 > window 64: the
-    ring buffer wraps): prefill, then decode a fixed token sequence
-    (teacher-forced) on the card (kernels) and on the CPU (plain
-    versions), on the same weights; logits at every step and the final
-    caches agree within 1e-3."""
+    """Reduced yi-6b, reduced h2o-danube (prompt 96 > window 64: the
+    ring buffer wraps) and reduced rwkv6 (the recurrent state updated in
+    place): prefill, then decode a fixed token sequence (teacher-forced)
+    on the card (kernels) and on the CPU (plain versions), on the same
+    weights; logits at every step and the final caches agree within
+    1e-3."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serving.generate import graft
     from repro_torch.tree import tree_map
     rows = []
-    for arch in ("yi-6b", "h2o-danube-1.8b"):
+    for arch in ("yi-6b", "h2o-danube-1.8b", RWKV_ARCH):
         cfg = get_config(arch).reduced()
         params = T.init_params(cfg, torch.Generator("cpu").manual_seed(5))
         gparams = tree_map(lambda a: a.to(dev), params)
@@ -481,11 +656,10 @@ def decode_model_phase(dev) -> list[dict]:
             caches[where], logits[where] = cache, torch.stack(steps)
         torch.cuda.synchronize()
         err = max(float((logits["card"] - logits["cpu"]).abs().max()),
-                  *(float((caches["card"]["main"][k].cpu()
-                           - caches["cpu"]["main"][k]).abs().max())
-                    for k in ("k", "v")))
+                  cache_err(caches["card"], caches["cpu"]))
+        main = caches["card"].get("main")
         row = {"phase": "decode_model", "config": cfg.name,
-               "slots": int(caches["card"]["main"]["k"].shape[2]),
+               "slots": None if main is None else int(main["k"].shape[2]),
                "steps": int(forced.shape[1]), "max_abs_err": err,
                "atol": 1e-3}
         log(row)
@@ -558,44 +732,75 @@ def routing_decided(rows, t_local: float | None, batch: int,
                 f"window {w}: capacity cut within {2 * delta}"
 
 
-def serve_phase(dev, argv=SERVE_ARGV):
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.kernels.fused_head_gate.ops import FusedLocalHead
+def build_serve_stack(dev, argv):
+    """Parse ``argv`` and build the serve stack (task, trained surrogate,
+    full-width remote tier, calibration); check the remote tier's
+    full-width prefill: finite logits, and a cache of the expected
+    shapes. Returns (args, stack, setup seconds)."""
     from repro_torch.launch import serve
-    from repro_torch.models import surrogate as S
     from repro_torch.models import transformer as T
 
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     args = serve.parse_args(argv)
     stack = serve.build_stack(args)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
-    # full-width prefill output: finite, of the expected shapes
     with torch.no_grad():
         logits, cache = T.prefill(
             stack.rcfg, stack.rparams,
             {"tokens": stack.toks[:2] % stack.rcfg.vocab_size})
     rc = stack.rcfg
     assert logits.shape == (2, rc.vocab_size), logits.shape
-    assert cache["main"]["k"].shape == (rc.num_layers, 2, stack.toks.shape[1],
-                                        rc.num_kv_heads,
-                                        rc.resolved_head_dim)
+    if rc.block_type == "rwkv6":
+        h, m = rc.d_model // rc.rwkv_head_dim, rc.rwkv_head_dim
+        st = cache["rwkv"]
+        assert st["wkv"].shape == (rc.num_layers, 2, h, m, m)
+        assert st["tm_prev"].shape == st["cm_prev"].shape \
+            == (rc.num_layers, 2, rc.d_model)
+        assert all(bool(torch.isfinite(a).all()) for a in st.values())
+    else:
+        assert cache["main"]["k"].shape == (rc.num_layers, 2,
+                                            stack.toks.shape[1],
+                                            rc.num_kv_heads,
+                                            rc.resolved_head_dim)
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
+    return args, stack, setup_s
 
-    # the main path: the window scheduler over the gated local step
+
+def serve_main_run(dev, args, stack, kernels) -> tuple:
+    """The main path: the window scheduler over the gated local step,
+    with every launch count set to 0 just before and read just after.
+    Asserts the serving checks, that each of ``kernels`` launched, and
+    the accepted accuracy. Returns (result, summary)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
     reset_launch_counts()
     res = serve.run(args, stack)
     torch.cuda.synchronize(dev)
-    main_counts = launch_counts()
+    counts = launch_counts()
     main = serve_checks(res, args.requests)
-    main["launches"] = main_counts
-    for name in ("gate_score", "gate_select", "flash_attention"):
-        assert main_counts[name] > 0, f"{name} never launched on the path"
+    main["launches"] = counts
+    for name in kernels:
+        assert counts[name] > 0, f"{name} never launched on the path"
     acc = np.mean([r.prediction == stack.labels[r.uid]
                    for r in res.responses if r.source != "fallback"])
     main["accepted_accuracy"] = float(acc)
     assert acc > 0.9, f"accepted accuracy {acc}"
+    return res, main
+
+
+def serve_phase(dev, argv=SERVE_ARGV):
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.fused_head_gate.ops import FusedLocalHead
+    from repro_torch.launch import serve
+    from repro_torch.models import surrogate as S
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    args, stack, setup_s = build_serve_stack(dev, argv)
+    rc = stack.rcfg
+    res, main = serve_main_run(dev, args, stack,
+                               ("gate_score", "gate_select",
+                                "flash_attention"))
 
     # the engine's other branch: a FusedLocalHead over the same surrogate
     @torch.no_grad()
@@ -632,6 +837,29 @@ def serve_phase(dev, argv=SERVE_ARGV):
            "remote": rc.name, "remote_layers": rc.num_layers,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     log({"phase": "serve", **out})
+    out["remote_window_profile"] = profile_remote_window(stack)
+    return out, stack
+
+
+def rwkv_serve_phase(dev) -> tuple:
+    """``--remote-arch rwkv6-1.6b`` at full width: the same requests and
+    checks as the yi-6b serve run; the RWKV6 scan launches once per layer
+    of every remote window and no attention kernel launches."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    args, stack, setup_s = build_serve_stack(
+        dev, SERVE_ARGV + ["--remote-arch", RWKV_ARCH])
+    rc = stack.rcfg
+    res, main = serve_main_run(dev, args, stack,
+                               ("gate_score", "gate_select", "rwkv6_scan"))
+    counts = main["launches"]
+    want = rc.num_layers * main["remote_windows"]
+    assert counts["rwkv6_scan"] == want, \
+        f"rwkv6_scan: {counts['rwkv6_scan']} launches, not {want}"
+    assert counts["flash_attention"] == counts["decode_attention"] == 0
+    out = {"setup_s": setup_s, "main": main, "remote": rc.name,
+           "remote_layers": rc.num_layers,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    log({"phase": "serve_rwkv6", **out})
     out["remote_window_profile"] = profile_remote_window(stack)
     return out, stack
 
@@ -697,15 +925,17 @@ def top2_gap(logits: torch.Tensor) -> torch.Tensor:
 
 
 def generate_phase(dev, stack) -> dict:
-    """Greedy generation with yi-6b at full width on the serve stack's
-    weights: GEN_ROWS prompts of GEN_PROMPT tokens, GEN_TOKENS new tokens.
+    """Greedy generation with the serve stack's remote model (yi-6b or
+    rwkv6-1.6b) at full width on its weights: GEN_ROWS prompts of
+    GEN_PROMPT tokens, GEN_TOKENS new tokens.
     Asserts shapes, finite likelihoods in (0, 1], the kernels' launches
     on that run, that a teacher-forced replay of the decode loop on the
     generated tokens picks those same tokens (so what is timed and
     compared below is the main path's run), that each step's replayed
-    decode logits lie within GEN_LOGIT_TOL of a fresh prefill's over
-    the prompt and the tokens before it, and that each decoded token is
-    what that prefill picks wherever its top-2 gap exceeds GEN_LOGIT_TOL.
+    decode logits lie within GEN_LOGIT_TOL (RWKV_GEN_LOGIT_TOL for rwkv6)
+    of a fresh prefill's over the prompt and the tokens before it, and
+    that each decoded token is what that prefill picks wherever its top-2
+    gap exceeds that tolerance.
     Times the decode steps of the replay, profiles one, and applies the
     2nd supervisor (seq_min_likelihood) to the answers."""
     from repro_torch.core.supervisors import seq_min_likelihood
@@ -736,8 +966,14 @@ def generate_phase(dev, stack) -> dict:
     assert bool(torch.isfinite(liks).all()), "non-finite likelihoods"
     assert bool(((liks > 0) & (liks <= 1)).all()), "likelihood outside (0,1]"
     assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
-    want = {"decode_attention": n_l * (GEN_TOKENS - 1),
-            "maxconf": GEN_TOKENS, "flash_attention": n_l}
+    rwkv = cfg.block_type == "rwkv6"
+    tol = RWKV_GEN_LOGIT_TOL if rwkv else GEN_LOGIT_TOL
+    if rwkv:    # one scan per layer for the prefill and for every step
+        want = {"rwkv6_scan": n_l * GEN_TOKENS, "maxconf": GEN_TOKENS,
+                "flash_attention": 0, "decode_attention": 0}
+    else:
+        want = {"decode_attention": n_l * (GEN_TOKENS - 1),
+                "maxconf": GEN_TOKENS, "flash_attention": n_l}
     for name, n in want.items():
         assert counts[name] == n, f"{name}: {counts[name]} launches, not {n}"
 
@@ -777,25 +1013,28 @@ def generate_phase(dev, stack) -> dict:
         # prompt + tokens[:i] where that prefill's top-2 gap allows it
         seq = torch.as_tensor(prompt, device=dev)
         checked = agree = 0
-        diffs = []
+        diffs, gaps = [], []
         for i in range(GEN_TOKENS):
             lp, _ = T.prefill(cfg, params, {"tokens": seq})
             gap = top2_gap(lp)
-            ok = gap > GEN_LOGIT_TOL
+            gaps.append(gap)
+            ok = gap > tol
             hit = lp.argmax(-1).to(torch.int32) == toks[:, i]
             checked += int(ok.sum())
             agree += int((ok & hit).sum())
             assert bool(hit[ok].all()), \
                 f"step {i}: decoded token differs from a fresh prefill " \
-                f"with a top-2 gap above {GEN_LOGIT_TOL}"
+                f"with a top-2 gap above {tol}"
             diffs.append(float((dec_logits[i] - lp).abs().max()))
             seq = torch.cat([seq, toks[:, i:i + 1].long()], dim=1)
         torch.cuda.synchronize(dev)
     pairs = GEN_ROWS * GEN_TOKENS
-    assert max(diffs) <= GEN_LOGIT_TOL, \
+    assert max(diffs) <= tol, \
         f"decode and prefill logits differ by {max(diffs)}"
-    assert checked >= pairs // 8, \
+    assert checked >= pairs // (32 if rwkv else 8), \
         f"only {checked} of {pairs} tokens had a decisive prefill gap"
+    gap_q = torch.quantile(torch.cat(gaps).float().cpu(),
+                           torch.tensor([0.1, 0.25, 0.5, 0.75, 0.9])).tolist()
 
     conf = seq_min_likelihood(liks).cpu().numpy()
     t_remote = nominal_quantile_threshold(conf, 0.25)
@@ -809,7 +1048,8 @@ def generate_phase(dev, stack) -> dict:
            "decode_tokens_per_s": GEN_ROWS / med_ms * 1e3,
            "peak_mem_gib": peak_gib, "launches": counts,
            "prefill_checked": checked, "prefill_agree": agree,
-           "pairs": pairs, "logit_tol": GEN_LOGIT_TOL,
+           "pairs": pairs, "logit_tol": tol,
+           "prefill_top2_gap_q10_25_50_75_90": gap_q,
            "decode_vs_prefill_max_logit_diff": max(diffs),
            "replay_agree": int((replay == toks).sum()),
            "seq_min_likelihood": conf.tolist(), "t_remote": t_remote,
@@ -817,9 +1057,102 @@ def generate_phase(dev, stack) -> dict:
            "rejected": int((conf <= t_remote).sum())}
     log(out)
     out["decode_step_profile"] = prof_row = {
-        "phase": "decode_step_profile", "rows": GEN_ROWS,
-        "kv_slots": GEN_PROMPT + GEN_TOKENS, **profile}
+        "phase": "decode_step_profile", "config": cfg.name, "rows": GEN_ROWS,
+        "kv_slots": None if rwkv else GEN_PROMPT + GEN_TOKENS, **profile}
     log(prof_row)
+    return out
+
+
+def auc_roc(conf: np.ndarray, correct: np.ndarray) -> float:
+    """P(conf_correct > conf_wrong) + 0.5 P(=): Mann-Whitney with average
+    ranks for ties."""
+    pos, neg = conf[correct], conf[~correct]
+    if len(pos) == 0 or len(neg) == 0:
+        return float("nan")
+    _, inv, counts = np.unique(np.concatenate([pos, neg]),
+                               return_inverse=True, return_counts=True)
+    ranks = (np.cumsum(counts) - (counts - 1) / 2.0)[inv]
+    r_pos = ranks[:len(pos)].sum()
+    return float((r_pos - len(pos) * (len(pos) + 1) / 2)
+                 / (len(pos) * len(neg)))
+
+
+def supervisor_phase(dev) -> dict:
+    """The supervisor comparison of ``benchmarks/supervisor_comparison.py``
+    on the card, with the port's own functions: the same task (seed 7,
+    2048 inputs, 6 classes) and surrogate (d_model 48, d_ff 64, dropout
+    0.1), trained 50 steps on the first 1024 inputs by launch/serve.py's
+    ``train_surrogate``. The main path: MDSA fitted on the training-set
+    penultimate activations and the test set scored through the MDSA
+    kernel (held to its plain version); then the AUC-ROC of every
+    supervisor at telling the surrogate's correct test predictions from
+    its wrong ones."""
+    from repro_torch.core import supervisors as SV
+    from repro_torch.data.synthetic import make_classification_task
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.mdsa.ref import mdsa_ref
+    from repro_torch.launch.serve import train_surrogate
+    from repro_torch.models import surrogate as S
+    vocab, seq, ncls, n_train = 256, 32, 6, 1024
+    toks, labels, _ = make_classification_task(
+        7, n=2048, vocab=vocab, seq_len=seq, num_classes=ncls)
+    cfg = S.SurrogateConfig("cmp", vocab_size=vocab, max_len=seq, d_model=48,
+                            num_heads=2, d_ff=64, num_classes=ncls,
+                            dropout=0.1)
+    t0 = time.perf_counter()
+    models = [train_surrogate(cfg, toks[:n_train], labels[:n_train],
+                              steps=50, seed=seed, device=dev)[0]
+              for seed in (0, 1, 2)]
+    params = models[0]
+    tk = torch.as_tensor(toks, device=dev)
+    with torch.no_grad():
+        logits, hidden = S.apply(cfg, params, tk[n_train:],
+                                 return_hidden=True)
+        _, train_hidden = S.apply(cfg, params, tk[:n_train],
+                                  return_hidden=True)
+    torch.cuda.synchronize(dev)
+    train_s = time.perf_counter() - t0
+    correct = (logits.argmax(-1).cpu().numpy() == labels[n_train:])
+
+    # the main path
+    reset_launch_counts()
+    state = SV.fit_mdsa(train_hidden)
+    mdsa_conf = SV.mdsa_confidence(state, hidden)
+    torch.cuda.synchronize(dev)
+    counts = launch_counts()
+    assert counts["mdsa"] > 0, "mdsa never launched on the path"
+    want = -mdsa_ref(hidden, state.mean, state.prec)
+    err = float((mdsa_conf - want).abs().max())
+    assert torch.allclose(mdsa_conf, want, rtol=MDSA_RTOL, atol=MDSA_RTOL), \
+        f"mdsa confidences vs plain: max err {err}"
+    assert mdsa_conf.shape == (len(correct),)
+    assert bool(torch.isfinite(mdsa_conf).all() & (mdsa_conf <= 0).all())
+
+    confs = {name: fn(logits)
+             for name, fn in SV.SOFTMAX_SUPERVISORS.items()}
+    confs["mdsa"] = mdsa_conf
+    ae = SV.fit_autoencoder(torch.Generator(dev).manual_seed(1),
+                            train_hidden, latent=8, steps=200)
+    confs["autoencoder"] = SV.autoencoder_confidence(ae, hidden)
+    gen = torch.Generator(dev).manual_seed(2)
+    with torch.no_grad():
+        samples = torch.stack([S.apply(cfg, params, tk[n_train:],
+                                       dropout_rng=gen, mc_dropout=True)
+                               for _ in range(8)])
+        ens = torch.stack([S.apply(cfg, p, tk[n_train:]) for p in models])
+    confs["mc_dropout(vr)"] = SV.variation_ratio(samples)
+    confs["mc_dropout(mi)"] = SV.mutual_information(samples)
+    confs["ensemble(mms)"] = SV.mean_max_softmax(ens)
+    aucs = {name: auc_roc(c.float().cpu().numpy(), correct)
+            for name, c in confs.items()}
+    for name, a in aucs.items():
+        assert 0.0 <= a <= 1.0, f"{name}: AUC-ROC {a}"
+    out = {"phase": "supervisors", "train_s": train_s,
+           "test_rows": int(len(correct)), "hidden_width": cfg.d_ff,
+           "surrogate_accuracy": float(correct.mean()),
+           "mdsa_max_abs_err_vs_plain": err, "launches": counts,
+           "auc_roc": aucs}
+    log(out)
     return out
 
 
@@ -838,24 +1171,34 @@ SOURCES = {
                          "src/repro/kernels/decode_attention/kernel.py:27"),
     "maxconf": ("src/repro_torch/csrc/maxconf.cu",
                 "src/repro/kernels/maxconf/kernel.py:36"),
+    "rwkv6_scan": ("src/repro_torch/csrc/rwkv6_scan.cu",
+                   "src/repro/kernels/rwkv6_scan/kernel.py:28"),
+    "mdsa": ("src/repro_torch/csrc/mdsa.cu",
+             "src/repro/kernels/mdsa/kernel.py:28"),
 }
 
 
-def kernels_line(kern: dict, serve: dict, gen: dict) -> dict:
+def kernels_line(kern: dict, serve: dict, gen: dict, rwkv_gen: dict,
+                 sup: dict) -> dict:
     """One entry per kernel at the shape its path gives it: the serving
     path's kernels with the serve run's launches, the generate path's
-    with the generate run's."""
+    with the generate run's (the RWKV6 scan: rwkv6's generate run, at its
+    prefill's shape), MDSA with the supervisor phase's."""
     path_rows = {"gate_score": kern["gate_path"]["gate_score"],
                  "gate_select": kern["gate_path"]["gate_select"],
                  "fused_head_gate": kern["head_path"],
                  "flash_attention": kern["flash_8x48_bfloat16"],
                  "decode_attention": kern["decode_path_bfloat16"],
-                 "maxconf": kern["maxconf_path"]}
+                 "maxconf": kern["maxconf_path"],
+                 "rwkv6_scan": kern["rwkv6_prefill"],
+                 "mdsa": kern["mdsa_path"]}
     launches = dict(serve["main"]["launches"])
     launches["fused_head_gate"] = serve["fused_head"]["launches"][
         "fused_head_gate"]
     for name in ("decode_attention", "maxconf"):
         launches[name] = gen["launches"][name]
+    launches["rwkv6_scan"] = rwkv_gen["launches"]["rwkv6_scan"]
+    launches["mdsa"] = sup["launches"]["mdsa"]
     out = []
     for name, row in path_rows.items():
         src, repl = SOURCES[name]
@@ -898,13 +1241,21 @@ def main() -> int:
     log({"phase": "build", "seconds": RESULTS["build_s"],
          "dir": str(out_dir.relative_to(ROOT)), "ptxas": RESULTS["ptxas"]})
 
-    RESULTS["phases"]["kernels"] = kern = kernel_phase(dev)
-    RESULTS["phases"]["model"] = model_phase(dev)
-    RESULTS["phases"]["decode_model"] = decode_model_phase(dev)
+    phases = RESULTS["phases"]
+    phases["kernels"] = kern = kernel_phase(dev)
+    phases["model"] = model_phase(dev)
+    phases["decode_model"] = decode_model_phase(dev)
     serve, stack = serve_phase(dev)
-    RESULTS["phases"]["serve"] = serve
-    RESULTS["phases"]["generate"] = gen = generate_phase(dev, stack)
-    line = kernels_line(kern, serve, gen)
+    phases["serve"] = serve
+    phases["generate"] = gen = generate_phase(dev, stack)
+    phases["supervisors"] = sup = supervisor_phase(dev)
+    # free yi-6b, so that rwkv6's phases measure their own peak memory
+    del stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["serve_rwkv6"], stack = rwkv_serve_phase(dev)
+    phases["generate_rwkv6"] = rwkv_gen = generate_phase(dev, stack)
+    line = kernels_line(kern, serve, gen, rwkv_gen, sup)
     RESULTS["kernels"] = line["kernels"]
     out = ROOT / "build"
     out.mkdir(exist_ok=True)

@@ -5,6 +5,9 @@
 * ``select_escalations`` / ``gather_requests`` / ``combine_escalated`` —
   the fixed-capacity serving adaptation: the k lowest-confidence requests
   are gathered into a sub-batch for the remote tier.
+* ``trisupervised_batch`` / ``select_for_labeling`` — the paper's §4.6
+  extensions: an edge tier between local and remote, and the 1st-level
+  supervisor as an active-learning acquisition function.
 
 Ties in ``select_escalations`` go to the lower row index, as
 ``jax.lax.top_k(-conf, k)`` orders them in ``repro.core.cascade``:
@@ -78,3 +81,50 @@ def combine_escalated(local_pred: torch.Tensor, idx: torch.Tensor,
     out = local_pred.clone()
     out[idx] = remote_pred.to(out.dtype)
     return out
+
+
+# --------------------------------------------------------------------------
+# paper §4.6 extensions: TriSupervised (edge tier) + active learning
+# --------------------------------------------------------------------------
+
+EDGE = 3
+
+
+@dataclass(frozen=True)
+class TriThresholds:
+    """Three-tier thresholds: local -> edge -> remote -> fallback."""
+    t_local: float
+    t_edge: float
+    t_remote: float
+
+
+def trisupervised_batch(local_pred, local_conf, edge_pred, edge_conf,
+                        remote_pred, remote_conf,
+                        th: TriThresholds) -> dict[str, torch.Tensor]:
+    """Paper §4.6: an edge node between the local device and the remote
+    model. Vectorised like ``bisupervised_batch``; each tier is consulted
+    only when every cheaper tier's supervisor rejected."""
+    use_local = local_conf > th.t_local
+    use_edge = ~use_local & (edge_conf > th.t_edge)
+    remote_ok = remote_conf > th.t_remote
+    prediction = torch.where(use_local, local_pred,
+                             torch.where(use_edge, edge_pred, remote_pred))
+    source = torch.where(use_local, LOCAL,
+                         torch.where(use_edge, EDGE,
+                                     torch.where(remote_ok, REMOTE,
+                                                 REJECTED)))
+    return {
+        "prediction": prediction,
+        "source": source,
+        "accepted": use_local | use_edge | remote_ok,
+        "edge_called": ~use_local,
+        "remote_called": ~use_local & ~use_edge,
+    }
+
+
+def select_for_labeling(local_conf: torch.Tensor, budget: int):
+    """Paper §4.6 active learning: the 1st-level supervisor doubles as an
+    acquisition function — collect the ``budget`` least-confident inputs
+    for the next local-model training round. Returns (idx [budget],
+    mask [B])."""
+    return select_escalations(local_conf, budget)

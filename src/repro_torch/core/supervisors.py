@@ -4,16 +4,26 @@ Every supervisor maps model metadata to a scalar *confidence* per input
 (higher = more trustworthy); a prediction is trusted iff confidence > t.
 Uncertainty scores are negated into confidences so thresholding is uniform.
 
-This module holds the softmax family (metadata = logits [B, C]) and the
-sequence reducers over generated answers (metadata = per-token
-likelihoods [B, T]) as plain PyTorch functions on tensors of any device.
-The sampling, MDSA and autoencoder supervisors of
-``repro.core.supervisors`` come with a later slice of the port.
+Every supervisor of ``repro.core.supervisors``, as PyTorch functions on
+tensors of any device:
+
+  softmax family : MaxSoftmax (vanilla), PCS, negative entropy, Gini
+  sampling family: MC-Dropout / Ensemble reducers (variation ratio,
+                   mutual information, mean max-softmax)
+  surprise family: MDSA (Mahalanobis-distance surprise adequacy); its
+                   distance is the ``kernels.mdsa`` kernel on a CUDA tensor
+  black-box      : autoencoder reconstruction error
+  sequence       : per-token likelihood reducers (min — the paper's pick —
+                   and product) for free-text QA / generative decode
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+
 import torch
+import torch.nn.functional as F
 
 
 def max_softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -40,6 +50,122 @@ def gini_confidence(logits: torch.Tensor) -> torch.Tensor:
     return torch.sum(sm * sm, -1)
 
 
+SOFTMAX_SUPERVISORS = {
+    "max_softmax": max_softmax,
+    "pcs": prediction_confidence_score,
+    "neg_entropy": negative_entropy,
+    "gini": gini_confidence,
+}
+
+
+# --------------------------------------------------------------------------
+# sampling-based supervisors (metadata = logits [S, B, C] over S samples,
+# from MC-Dropout passes or an ensemble — same quantifiers, per paper)
+# --------------------------------------------------------------------------
+
+def variation_ratio(sample_logits: torch.Tensor) -> torch.Tensor:
+    """Confidence = fraction of samples agreeing with the modal class."""
+    preds = sample_logits.argmax(-1)                            # [S, B]
+    s, c = preds.shape[0], sample_logits.shape[-1]
+    counts = F.one_hot(preds, c).float().sum(0)                 # [B, C]
+    return counts.amax(-1) / s
+
+
+def mutual_information(sample_logits: torch.Tensor) -> torch.Tensor:
+    """Confidence = -MI = -(H[mean p] - mean H[p])  (BALD score, negated)."""
+    logp = torch.log_softmax(sample_logits.float(), -1)
+    p = torch.exp(logp)
+    p_mean = p.mean(0)
+    h_mean = -torch.sum(p_mean * torch.log(p_mean + 1e-12), -1)
+    mean_h = torch.mean(-torch.sum(p * logp, -1), 0)
+    return -(h_mean - mean_h)
+
+
+def mean_max_softmax(sample_logits: torch.Tensor) -> torch.Tensor:
+    """Confidence = max of the mean predictive distribution."""
+    p = torch.softmax(sample_logits.float(), -1)
+    return p.mean(0).amax(-1)
+
+
+SAMPLING_SUPERVISORS = {
+    "variation_ratio": variation_ratio,
+    "mutual_information": mutual_information,
+    "mean_max_softmax": mean_max_softmax,
+}
+
+
+# --------------------------------------------------------------------------
+# MDSA — Mahalanobis-distance surprise adequacy [Kim et al. 2020]
+# metadata = activation trace (penultimate hidden) [B, D]
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MDSAState:
+    mean: torch.Tensor      # [D] f32
+    prec: torch.Tensor      # [D, D] f32 inverse covariance (precision)
+
+
+def fit_mdsa(train_activations: torch.Tensor,
+             ridge: float = 1e-3) -> MDSAState:
+    """Fit mean/precision on *training-set* activation traces (fp32, on
+    the activations' device)."""
+    a = train_activations.float()
+    mu = a.mean(0)
+    x = a - mu
+    cov = (x.T @ x) / a.shape[0]
+    cov = cov + ridge * torch.eye(cov.shape[0], dtype=torch.float32,
+                                  device=a.device)
+    return MDSAState(mean=mu, prec=torch.linalg.inv(cov).contiguous())
+
+
+def mdsa_confidence(state: MDSAState,
+                    activations: torch.Tensor) -> torch.Tensor:
+    """Confidence = -sqrt((x-mu)^T Sigma^-1 (x-mu)) (low surprise =
+    trusted)."""
+    # imported here: the kernels package imports this module (the gate's
+    # plain version reads SOFTMAX_SUPERVISORS)
+    from repro_torch.kernels.mdsa.ops import mdsa_distance
+    return -mdsa_distance(activations.float().contiguous(), state.mean,
+                          state.prec)
+
+
+# --------------------------------------------------------------------------
+# autoencoder supervisor (black-box) [Stocco et al. 2020]
+# --------------------------------------------------------------------------
+
+def autoencoder_confidence(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tiny linear AE: confidence = -reconstruction MSE. params from
+    fit_autoencoder. x: [B, D] (input features or embeddings)."""
+    z = torch.tanh(x @ params["enc"] + params["enc_b"])
+    rec = z @ params["dec"] + params["dec_b"]
+    return -torch.mean(torch.square(rec - x), -1)
+
+
+def fit_autoencoder(gen: torch.Generator, x: torch.Tensor, latent: int = 16,
+                    steps: int = 200, lr: float = 1e-2) -> dict:
+    """Closed-loop gradient fit of the linear AE on nominal data: ``steps``
+    plain gradient steps of size ``lr`` on the mean reconstruction error.
+    The initial weights are drawn from ``gen`` (on x's device)."""
+    d = x.shape[-1]
+    dev = x.device
+    params = {
+        "enc": torch.randn((d, latent), generator=gen, device=dev)
+        / math.sqrt(d),
+        "enc_b": torch.zeros(latent, device=dev),
+        "dec": torch.randn((latent, d), generator=gen, device=dev)
+        / math.sqrt(latent),
+        "dec_b": torch.zeros(d, device=dev),
+    }
+    x = x.detach().float()
+    for _ in range(steps):
+        leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+        loss = -torch.mean(autoencoder_confidence(leaves, x))
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        params = {k: (v - lr * g).detach()
+                  for (k, v), g in zip(leaves.items(), grads)}
+    return params
+
+
 # --------------------------------------------------------------------------
 # sequence reducers (free-text QA; metadata = per-token likelihood [B, T])
 # --------------------------------------------------------------------------
@@ -63,9 +189,13 @@ def seq_prod_likelihood(token_likelihoods: torch.Tensor,
     return torch.exp(lk.sum(-1))
 
 
-SOFTMAX_SUPERVISORS = {
-    "max_softmax": max_softmax,
-    "pcs": prediction_confidence_score,
-    "neg_entropy": negative_entropy,
-    "gini": gini_confidence,
-}
+def equivalent_token_confidence(logits: torch.Tensor,
+                                groups: torch.Tensor) -> torch.Tensor:
+    """IMDB-style 2nd-level supervisor: sum softmax mass over hard-coded
+    equivalent tokens (e.g. "Negative"/"negative"/"bad").
+
+    logits: [B, V]; groups: [G, V] 0/1 membership. Returns the mass of the
+    best group (the remote model's effective class confidence)."""
+    sm = torch.softmax(logits.float(), -1)
+    group_mass = sm @ groups.T.float()                       # [B, G]
+    return group_mass.amax(-1)

@@ -5,12 +5,13 @@ The port of ``repro.launch.serve``: the same flags, plus ``--device
 {cuda,cpu}`` (default ``cuda``; a missing GPU is an error, never a quiet
 fallback to the CPU).
 
-Local tier: a trained surrogate classifier. Remote tier: a dense
-transformer of ``--remote-arch`` (yi-6b by default, at full width unless
-``--smoke``), reached through the fault-aware transport with a
-content-keyed response cache. The 1st-level supervisor escalates the
-lowest-confidence requests through the on-device confidence gate; the
-2nd-level supervisor filters untrusted remote predictions (fallback).
+Local tier: a trained surrogate classifier. Remote tier: the model of
+``--remote-arch`` (yi-6b by default; the dense attention family or
+rwkv6-1.6b), at full width unless ``--smoke``, reached through the
+fault-aware transport with a content-keyed response cache. The 1st-level
+supervisor escalates the lowest-confidence requests through the
+on-device confidence gate; the 2nd-level supervisor filters untrusted
+remote predictions (fallback).
 
 The serving surface is ONE ``ServeConfig``; any field is set with a
 repeatable ``--set key=value`` (nested ``transport.*``, ``cost.*``,

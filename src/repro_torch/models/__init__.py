@@ -1,4 +1,4 @@
-"""Model substrate (dense attention family) for the port."""
+"""Model substrate (dense attention and rwkv6 families) for the port."""
 
 from repro_torch.models.transformer import (decode_step, forward, init_params,
                                             make_cache, prefill)

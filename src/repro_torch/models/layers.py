@@ -84,6 +84,18 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return (y * w.float() + b.float()).to(dt)
 
 
+def group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               num_groups: int, eps: float) -> torch.Tensor:
+    """GroupNorm over the last dim (RWKV6's output norm)."""
+    dt = x.dtype
+    *lead, d = x.shape
+    x = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = torch.mean(x, -1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), -1, keepdim=True)
+    y = ((x - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * w.float() + b.float()).to(dt)
+
+
 # --------------------------------------------------------------------------
 # rotary embeddings
 # --------------------------------------------------------------------------

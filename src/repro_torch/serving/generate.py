@@ -4,9 +4,10 @@ Returns per-token likelihoods of the chosen tokens so the sequence
 supervisors (``core.supervisors.seq_min_likelihood`` — the paper's QA
 reducer) apply directly: the generative analogue of the classification
 cascade. On CUDA tensors the prefill runs the flash-attention kernel,
-every decode step the decode-attention kernel once per layer, and each
-token is picked by the maxconf kernel (argmax and max-softmax in one pass
-over the vocabulary); the loop never synchronises with the host.
+every decode step the decode-attention kernel once per layer (for RWKV6,
+the prefill and every step the RWKV6 scan kernel once per layer), and
+each token is picked by the maxconf kernel (argmax and max-softmax in one
+pass over the vocabulary); the loop never synchronises with the host.
 """
 
 from __future__ import annotations
@@ -26,7 +27,11 @@ def _pick(logits: torch.Tensor):
 def graft(cache: dict, pcache: dict) -> dict:
     """Copy a prefill's cache, covering positions [0, t), into a serving
     cache from ``make_cache`` (under SWA with t > window the prefill
-    returns the whole ring, already rolled, and is taken as it is)."""
+    returns the whole ring, already rolled, and is taken as it is). An
+    RWKV6 state has the same shape in both and is taken as it is."""
+    if "rwkv" in pcache:
+        cache["rwkv"] = pcache["rwkv"]
+        return cache
     for name, src in pcache["main"].items():
         dst = cache["main"][name]
         if dst.shape == src.shape:

@@ -13,7 +13,12 @@ relative, and the fp32 sums: a limit that shrinks with the small outputs
 of a softmax over a long cache); maxconf's prediction exact (planted ties resolve to
 the first index), max_softmax and pcs atol 1e-5, entropy atol
 2e-6 * max|logit| + 1e-5 (the kernel's ``m1 + log s - t/s`` is a
-difference of terms as large as the top logit).
+difference of terms as large as the top logit); the RWKV6 scan's y and
+state 2e-5 * max|want| + 1e-5 against the plain version in f32 on the
+same inputs (fp32 sums of M products in another order, and FMA
+contraction in the state update, drifting by a few ulp per step); the
+MDSA distance rtol 1e-4 / atol 1e-4 (fp32 quadratic forms of up to 4096^2
+products summed in another order).
 TF32 is switched off so the plain versions compute in full fp32, as the
 kernels do.
 """
@@ -36,6 +41,10 @@ from repro_torch.kernels.fused_head_gate.ops import fused_head_gate  # noqa: E40
 from repro_torch.kernels.fused_head_gate.ref import fused_head_gate_ref  # noqa: E402
 from repro_torch.kernels.maxconf.ops import maxconf  # noqa: E402
 from repro_torch.kernels.maxconf.ref import maxconf_ref  # noqa: E402
+from repro_torch.kernels.mdsa.ops import mdsa_distance  # noqa: E402
+from repro_torch.kernels.mdsa.ref import mdsa_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 SUPERVISORS = ("max_softmax", "pcs", "neg_entropy", "gini")
@@ -239,3 +248,153 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
         decode_attn(q, kc, kc, lens.long())
     with pytest.raises(ValueError, match="contiguous"):
         decode_attn(q, kc.transpose(1, 2), kc.transpose(1, 2), lens)
+
+
+# ------------------------------------------------------------ RWKV6 scan
+
+def scan_inputs(dev, b, t, h, m, dtype, seed, tail=0):
+    """r, k, v (dtype) and w, u, s0 (f32) on the card, w in (0, 1) spread
+    from fast to slow decay. With ``tail`` > 0 each tensor is the head of
+    a buffer whose next ``tail`` elements are NaN."""
+    rng = np.random.default_rng(seed)
+
+    def mk(shape, values, dt):
+        n = int(np.prod(shape))
+        buf = torch.full((n + tail,), float("nan"), dtype=dt, device=dev)
+        buf[:n] = torch.from_numpy(values.reshape(-1)).to(dev).to(dt)
+        return buf[:n].view(shape)
+
+    shape = (b, t, h, m)
+    r, k, v = (mk(shape, 0.5 * rng.standard_normal(shape), dtype)
+               for _ in range(3))
+    w = mk(shape, np.exp(-np.exp(rng.standard_normal(shape) - 3.0)),
+           torch.float32)
+    u = mk((h, m), 0.5 * rng.standard_normal((h, m)), torch.float32)
+    s0 = mk((b, h, m, m), 0.5 * rng.standard_normal((b, h, m, m)),
+            torch.float32)
+    return r, k, v, w, u, s0
+
+
+def scan_close(got, want) -> None:
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == x.shape
+        tol = 2e-5 * float(x.abs().max()) + 1e-5
+        assert float((g - x).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("b,t,h,m,dtype", [
+    (8, 512, 32, 64, torch.bfloat16),     # the generate prefill
+    (8, 48, 32, 64, torch.bfloat16),      # a serve window
+    (8, 1, 32, 64, torch.bfloat16),       # a decode step
+    (2, 128, 2, 32, torch.float32),
+    (3, 100, 4, 64, torch.float32),
+    (2, 70, 3, 16, torch.bfloat16),
+])
+def test_rwkv6_scan_kernel_matches_plain(dev, b, t, h, m, dtype):
+    r, k, v, w, u, s0 = scan_inputs(dev, b, t, h, m, dtype, seed=t + m)
+    s_keep = s0.clone()
+    before = launch_counts()["rwkv6_scan"]
+    got = rwkv6_scan(r, k, v, w, u, s0)
+    want = rwkv6_scan_ref(r.float(), k.float(), v.float(), w, u, s0)
+    assert launch_counts()["rwkv6_scan"] == before + 1
+    scan_close(got, want)
+    assert torch.equal(s0, s_keep)          # s0 is not written
+
+
+@pytest.mark.parametrize("t", [1, 33])
+def test_rwkv6_scan_kernel_updates_aliased_state(dev, t):
+    """Decode passes the layer's state as both s0 and s_out."""
+    r, k, v, w, u, s0 = scan_inputs(dev, 8, t, 32, 64, torch.bfloat16,
+                                    seed=40 + t)
+    want = rwkv6_scan_ref(r, k, v, w, u, s0.clone())
+    y, s_t = rwkv6_scan(r, k, v, w, u, s0, s0)
+    assert s_t.data_ptr() == s0.data_ptr()
+    scan_close((y, s0), want)
+
+
+def test_rwkv6_scan_kernel_state_carry(dev):
+    r, k, v, w, u, s0 = scan_inputs(dev, 4, 96, 8, 64, torch.float32,
+                                    seed=50)
+    y_full, s_full = rwkv6_scan(r, k, v, w, u, s0)
+    state = s0.clone()
+    parts = [rwkv6_scan(r[:, a:e].contiguous(), k[:, a:e].contiguous(),
+                        v[:, a:e].contiguous(), w[:, a:e].contiguous(), u,
+                        state, state)[0]
+             for a, e in ((0, 40), (40, 41), (41, 96))]
+    scan_close((torch.cat(parts, 1), state), (y_full, s_full))
+
+
+def test_rwkv6_scan_kernel_reads_nothing_past_its_inputs(dev):
+    """Every input is followed by NaN: a read past any tensor's end (the
+    ragged last chunk of T = 70, M = 16 heads) makes the output
+    non-finite."""
+    args = scan_inputs(dev, 2, 70, 3, 16, torch.bfloat16, seed=60, tail=4096)
+    y, s_t = rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s_t).all())
+    scan_close((y, s_t), rwkv6_scan_ref(*args))
+
+
+# ------------------------------------------------------------------ MDSA
+
+def mdsa_inputs(dev, b, d, seed, tail=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((d, d), np.float32)).to(dev)
+    prec = a @ a.T * (0.09 / d) + torch.eye(d, device=dev)
+
+    def with_tail(t):
+        n = t.numel()
+        buf = torch.full((n + tail,), float("nan"), device=dev)
+        buf[:n] = t.reshape(-1)
+        return buf[:n].view(t.shape)
+
+    x = torch.from_numpy(rng.standard_normal((b, d), np.float32)).to(dev)
+    mean = torch.from_numpy(rng.standard_normal(d).astype(np.float32))
+    return with_tail(x), with_tail(mean.to(dev)), with_tail(prec)
+
+
+@pytest.mark.parametrize("b,d", [(8, 64), (128, 128), (100, 200), (1, 32),
+                                 (256, 4096), (1024, 64), (70, 1000)])
+def test_mdsa_kernel_matches_plain(dev, b, d):
+    x, mean, prec = mdsa_inputs(dev, b, d, seed=b + d)
+    before = launch_counts()["mdsa"]
+    got = mdsa_distance(x, mean, prec)
+    want = mdsa_ref(x, mean, prec)
+    torch.cuda.synchronize()
+    assert launch_counts()["mdsa"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b,)
+    assert torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_mdsa_kernel_reads_nothing_past_its_inputs(dev):
+    x, mean, prec = mdsa_inputs(dev, 100, 200, seed=70, tail=8192)
+    got = mdsa_distance(x, mean, prec)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.allclose(got, mdsa_ref(x, mean, prec), rtol=1e-4, atol=1e-4)
+
+
+def test_new_wrappers_raise_on_what_kernels_do_not_take(dev):
+    r, k, v, w, u, s0 = scan_inputs(dev, 2, 4, 2, 64, torch.float32, seed=0)
+    with pytest.raises(TypeError, match="share a dtype"):
+        rwkv6_scan(r.bfloat16(), k, v, w, u, s0)
+    with pytest.raises(TypeError):
+        rwkv6_scan(r, k, v, w.bfloat16(), u, s0)
+    with pytest.raises(ValueError, match="head size"):
+        big = torch.zeros(2, 4, 1, 128, device=dev)
+        rwkv6_scan(big, big, big, big, torch.zeros(1, 128, device=dev),
+                   torch.zeros(2, 1, 128, 128, device=dev))
+    with pytest.raises(ValueError, match="T >= 1"):
+        rwkv6_scan(r[:, :0], k[:, :0], v[:, :0], w[:, :0], u, s0)
+    with pytest.raises(ValueError, match="shapes"):
+        rwkv6_scan(r, k, v, w, u, s0[:1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        rwkv6_scan(r.transpose(1, 2), k, v, w, u, s0)
+    x, mean, prec = mdsa_inputs(dev, 4, 16, seed=0)
+    with pytest.raises(TypeError):
+        mdsa_distance(x.double(), mean.double(), prec.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        mdsa_distance(x, mean, prec.t())
+    with pytest.raises(ValueError, match="shapes"):
+        mdsa_distance(x, mean[:8].contiguous(), prec)

@@ -209,4 +209,4 @@ def test_decode_step_refuses_embeddings_and_other_families():
     with pytest.raises(NotImplementedError, match="embeddings"):
         T.decode_step(cfg, params, torch.zeros(2, cfg.d_model), cache, 0)
     with pytest.raises(NotImplementedError, match="later slice"):
-        T.make_cache(get_config("rwkv6-1.6b").reduced(), 2, 8, "cpu")
+        T.make_cache(get_config("zamba2-7b").reduced(), 2, 8, "cpu")
