@@ -12,7 +12,8 @@ toolkit. In order, it
    widths (and a 16384-token cache for decode attention, and MDSA at
    [256, 4096] x [4096, 4096]), and times kernel, plain version and
    (where one PyTorch call computes the same function) the library call
-   with CUDA events;
+   with CUDA events, and the attention kernels' own device time with
+   torch.profiler (the wrapper's host work left out);
 4. checks the remote model's prefill and its decode steps on the card
    against the CPU on reduced configs (yi-6b; h2o-danube, whose
    sliding-window ring buffer wraps; rwkv6), then serves 256 requests through
@@ -119,6 +120,38 @@ def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _device_us(e) -> float:
+    """A profiler event's own device time in microseconds."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(e, name, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def device_ms(fn, marks: tuple[str, ...], calls: int = 20) -> float | None:
+    """Device time of one call of ``fn``: the device time of the kernels
+    whose names contain one of ``marks``, summed over ``calls``
+    back-to-back calls under torch.profiler, per call. The wrapper's host
+    work is not in it (it is in the CUDA-event times, where it sets the
+    pace at small shapes). The profiler has come back empty now and
+    then, so an empty trace is taken once more; None where the second one
+    records no device time either."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if any(m in e.key for m in marks))
+        if us:
+            return us / 1e3 / calls
+    return None
 
 
 # ----------------------------------------------------------------------------
@@ -294,6 +327,9 @@ def check_flash(dev, b: int, t: int, dtype, seed: int, window: int = 0,
     k_ms = time_ms(lambda: ak.flash_attention(q, k, v, causal=True,
                                               window=window),
                    samples=21, inner=3)
+    dev_ms = device_ms(lambda: ak.flash_attention(q, k, v, causal=True,
+                                                  window=window),
+                       ("flash_wgmma_kernel", "flash_prefill_kernel"))
     p_ms = time_ms(lambda: attention_ref(q, k, v, causal=True, window=window),
                    samples=21, inner=3)
     lib_ms = None
@@ -312,8 +348,9 @@ def check_flash(dev, b: int, t: int, dtype, seed: int, window: int = 0,
     row = {"kernel": "flash_attention", "shape": [b, t, h, hd],
            "kv_heads": kh, "window": window,
            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-           "atol": atol, "kernel_ms": k_ms, "plain_ms": p_ms,
-           "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
+           "atol": atol, "kernel_ms": k_ms, "device_ms": dev_ms,
+           "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bnd,
+           "bound_by": by}
     log(row)
     return row
 
@@ -345,6 +382,8 @@ def check_decode(dev, b: int, s: int, dtype, seed: int, lens=None,
     assert used <= 1, \
         f"decode attention {tag} max err {err} exceeds {rtol}|want| + {atol}"
     k_ms = time_ms(lambda: dk.decode_attention(q, k, v, kv_len))
+    dev_ms = device_ms(lambda: dk.decode_attention(q, k, v, kv_len),
+                       ("decode_split_kernel", "decode_combine_kernel"))
     p_ms = time_ms(lambda: decode_attention_ref(q, k, v, kv_len))
     # yardstick: SDPA over the [B, K, S, hd] view with the kv_len mask
     mask = (torch.arange(s, device=dev)[None, :]
@@ -361,7 +400,7 @@ def check_decode(dev, b: int, s: int, dtype, seed: int, lens=None,
            "heads": h, "kv_len": [min(lens), max(lens)],
            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
            "rtol": rtol, "atol": atol, "share_of_limit": used,
-           "kernel_ms": k_ms, "plain_ms": p_ms,
+           "kernel_ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
            "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
     log(row)
     return row
@@ -545,15 +584,19 @@ def kernel_phase(dev) -> dict:
                                          torch.bfloat16, seed=14)}
     # 8 x 48: one transport window of escalations (max_in_flight 8) at
     # the task's 48 tokens, as the serve path sends it; 10 x 48: a whole
-    # batch's escalations (ceil(0.3 * 32)); 1 x 2048: a long prompt
+    # batch's escalations (ceil(0.3 * 32)); 8 x 512: the generate path's
+    # prefill; 1 x 2048: a long prompt
     out["flash_8x48_bfloat16"] = check_flash(dev, 8, 48, torch.bfloat16,
                                              seed=15)
+    out["flash_8x512_bfloat16"] = check_flash(dev, GEN_ROWS, GEN_PROMPT,
+                                              torch.bfloat16, seed=17)
     for b, t in ((10, 48), (1, 2048)):
         for dt in (torch.bfloat16, torch.float32):
             key = f"flash_{b}x{t}_{str(dt).split('.')[-1]}"
             out[key] = check_flash(dev, b, t, dt, seed=15)
-    out["flash_window"] = check_flash(dev, 2, 300, torch.float32, seed=16,
-                                      window=64)
+    for dt in (torch.bfloat16, torch.float32):
+        out[f"flash_window_{str(dt).split('.')[-1]}"] = check_flash(
+            dev, 2, 300, dt, seed=16, window=64)
     # decode attention: the generate path's last step (8 prompts of 512
     # tokens + 31 decoded: 543 valid of 544 slots), per-row lengths, a
     # full 64-slot ring buffer and a long context
@@ -566,6 +609,9 @@ def kernel_phase(dev) -> dict:
         lens=[1, s_path, 100, 272, 400, 7, s_path - 1, 33])
     out["decode_ring64"] = check_decode(dev, 8, 64, torch.bfloat16, seed=20)
     out["decode_long"] = check_decode(dev, 8, 16384, torch.bfloat16, seed=21)
+    # f32 at the same length: twice the bytes through the CUDA-core scores
+    out["decode_long_float32"] = check_decode(dev, 8, 16384, torch.float32,
+                                              seed=21)
     out["maxconf_path"] = check_maxconf(dev, GEN_ROWS, 64000, seed=22)
     out["maxconf_152k"] = check_maxconf(dev, 32, 152064, seed=23)
     # rwkv6-1.6b's time mix (32 heads of 64): the generate prefill, a
@@ -875,13 +921,7 @@ def device_profile(fn) -> dict:
         fn()
         traced_ms = (time.perf_counter() - t0) * 1e3
 
-    def device_us(e) -> float:
-        for name in ("self_device_time_total", "self_cuda_time_total"):
-            v = getattr(e, name, None)
-            if v:
-                return float(v)
-        return 0.0
-
+    device_us = _device_us
     # kernel events only (an operator's device time repeats its kernels')
     kern = sorted(((e.key, device_us(e) / 1e3, e.count)
                    for e in prof.key_averages()
@@ -1205,7 +1245,9 @@ def kernels_line(kern: dict, serve: dict, gen: dict, rwkv_gen: dict,
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": repl, "launches": launches[name],
                     "max_abs_err": row["max_abs_err"],
-                    "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                    "ms": row["kernel_ms"],
+                    "device_ms": row.get("device_ms"),
+                    "plain_ms": row["plain_ms"],
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"], "shape": row["shape"]})
     return {"kernels": out}

@@ -1,13 +1,15 @@
 """ctypes wrapper of the decode-attention CUDA kernel
-(``csrc/decode_attention.cu``). The output and the split partials are
-allocated here with ``torch.empty``; the kernels launch on PyTorch's
-current stream and never synchronise."""
+(``csrc/decode_attention.cu``) and its launch plan. The output and the
+split partials are allocated here with ``torch.empty``; the kernels
+launch on PyTorch's current stream and never synchronise. The plan is
+cached per shape, so the 992 calls of a generate run compute it once."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -17,8 +19,16 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16          # query heads per KV head (the kernel's registers)
 KEY_TILE = 32           # keys per staged tile; a split is a multiple
-MIN_CHUNK = 64          # fewest keys a split streams
-TARGET_BLOCKS = 264     # two blocks per SM of the H100's 132
+STAGES = 4              # tiles in the cp.async ring
+THREADS = 128
+WARPS = THREADS // 32
+MIN_CHUNK = 2 * KEY_TILE        # fewest keys a split streams
+SM_COUNT = 132                  # H100 SXM
+SMEM_PER_SM = 233_472           # 228 KB of shared memory per SM
+SMEM_PER_BLOCK = 232_448        # the most one block may use
+SMEM_RESERVED = 1024            # the driver's share per resident block
+# blocks of 128 threads an SM holds by registers, at <= 128 a thread
+MAX_RESIDENT = 4
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -27,18 +37,50 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     return build.bind("decode_attention", {
         "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _I, _F, _P],
+                             _I, _I, _I, _F, _I, _P],
     })
 
 
-def splits(b: int, kh: int, s: int) -> tuple[int, int]:
-    """(nsplit, chunk): the cache's S axis cut into nsplit chunks of
-    ``chunk`` keys (a multiple of the tile), enough that the B*K pairs
-    give about TARGET_BLOCKS blocks."""
-    want = max(1, -(-TARGET_BLOCKS // (b * kh)))
+class DecodePlan(NamedTuple):
+    """How ``decode_attention`` launches: ``nsplit`` x (B*K) blocks of
+    THREADS, each streaming ``chunk`` keys (whole tiles) through a ring of
+    ``stages`` tiles in ``smem_bytes`` of dynamic shared memory;
+    ``group_pad`` query heads (G rounded up to a power of two); an SM
+    holds ``resident`` blocks, which keep ``inflight_bytes`` of K and V in
+    flight on it."""
+    nsplit: int
+    chunk: int
+    group_pad: int
+    stages: int
+    smem_bytes: int
+    resident: int
+    inflight_bytes: int
+
+
+@functools.cache
+def splits(b: int, kh: int, s: int, g: int, hd: int,
+           esz: int) -> DecodePlan:
+    """The plan for caches [b, s, kh, hd] of ``esz``-byte elements and g
+    query heads per KV head. Bytes, not blocks, set it: each block keeps
+    STAGES - 1 tiles in flight, the shared memory decides how many blocks
+    an SM holds, and the S axis is cut so that the B*K pairs fill one
+    wave of them (more splits would leave a partial second wave). Raises
+    once per plan if the shared memory exceeds what a block may use."""
+    gp = 1 << max(0, g - 1).bit_length()
+    tile = KEY_TILE * hd * esz                     # bytes of K (or V)
+    # the K and V rings; the scores [max(gp, 8), tile + 1] in fp32 (bf16,
+    # from the tensor cores) or q [gp, hd] in fp32 (f32); P per warp
+    scores = max(gp, 8) * (KEY_TILE + 1) * 4 if esz == 2 else gp * hd * 4
+    smem = 2 * STAGES * tile + scores + WARPS * max(1, gp // WARPS) \
+        * KEY_TILE * 4
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"decode plan needs {smem} bytes of shared memory")
+    resident = max(1, min(MAX_RESIDENT, SMEM_PER_SM // (smem + SMEM_RESERVED)))
+    want = max(1, SM_COUNT * resident // (b * kh))
     chunk = -(-s // want)
     chunk = max(MIN_CHUNK, -(-chunk // KEY_TILE) * KEY_TILE)
-    return -(-s // chunk), chunk
+    return DecodePlan(-(-s // chunk), chunk, gp, STAGES, smem, resident,
+                      resident * (STAGES - 1) * 2 * tile)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -72,20 +114,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("q and the caches must be 16-byte aligned")
     if b * kh > 65535:
         raise ValueError(f"B*K = {b * kh} exceeds the grid's y limit")
-    nsplit, chunk = splits(b, kh, s)
+    p = splits(b, kh, s, h // kh, hd, q.element_size())
+    nsplit, chunk = p.nsplit, p.chunk
     dev = q.device
     o = torch.empty_like(q)
     # one scratch buffer: the splits' partial outputs, then their (m, l)
     n_o = b * h * nsplit * hd
     part = torch.empty(n_o + b * h * nsplit * 2, dtype=torch.float32,
                        device=dev)
-    part_o, part_ml = part[:n_o], part[n_o:]
     lib = _lib()
     with torch.cuda.device(dev):
         err = lib.decode_attention(
             build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
-            build.ptr(kv_len), build.ptr(o), build.ptr(part_o),
-            build.ptr(part_ml), DTYPE_CODES[q.dtype], b, s, h, kh, hd, chunk,
-            nsplit, 1.0 / math.sqrt(hd), build.stream_of(q))
+            build.ptr(kv_len), build.ptr(o), build.ptr(part),
+            ctypes.c_void_p(part.data_ptr() + 4 * n_o),
+            DTYPE_CODES[q.dtype], b, s, h, kh, hd, chunk,
+            nsplit, 1.0 / math.sqrt(hd), p.smem_bytes, build.stream_of(q))
     build.check(lib, err, "decode_attention")
     return o

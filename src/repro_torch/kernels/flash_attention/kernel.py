@@ -1,12 +1,13 @@
 """ctypes wrapper of the flash-attention prefill CUDA kernel
-(``csrc/flash_attention.cu``). The output is allocated here with
-``torch.empty``."""
+(``csrc/flash_attention.cu``) and its launch plan. The output is
+allocated here with ``torch.empty``."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -14,6 +15,8 @@ from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
+MAX_SMEM_PER_BLOCK = 232_448   # the most shared memory one H100 block may use
+THREADS = 128
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -22,14 +25,51 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     return build.bind("flash_attention", {
         "flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _F, _P],
+                          _F, _I, _P],
     })
+
+
+class FlashPlan(NamedTuple):
+    """How ``flash_prefill`` launches: ``grid`` (row tiles, B*K) of
+    ``threads``; each block owns ``rows`` fused (t, g) rows and streams
+    K/V in tiles of ``keys``, ``stages`` tiles deep, in ``smem_bytes`` of
+    shared memory (dynamic for the bf16 wgmma kernel, ``tensor_cores``;
+    static for the f32 one)."""
+    grid: tuple[int, int]
+    threads: int
+    rows: int
+    keys: int
+    stages: int
+    smem_bytes: int
+    tensor_cores: bool
+
+
+@functools.cache
+def plan(b: int, t: int, kh: int, g: int, hd: int,
+         dtype: torch.dtype) -> FlashPlan:
+    """The launch plan for q [b, t, kh*g, hd] in ``dtype``: bf16 on the
+    tensor cores (one warpgroup's 64 rows, 64-key tiles, a 2-stage
+    cp.async ring of bf16 K/V with Q, in dynamic shared memory aligned to
+    1 KB); f32 on the CUDA cores (16 rows, 32-key tiles of fp32 in static
+    shared memory). Raises if the shared memory exceeds what a block may
+    use."""
+    if dtype == torch.bfloat16:
+        rows, keys, stages = 64, 64, 2
+        smem = (rows + 2 * stages * keys) * hd * 2 + 1024  # + alignment
+    else:
+        rows, keys, stages = 16, 32, 1
+        smem = (rows * (hd + 1) + 2 * keys * (hd + 1) + rows * (keys + 1)) * 4
+    if smem > MAX_SMEM_PER_BLOCK:
+        raise ValueError(f"flash plan needs {smem} bytes of shared memory")
+    return FlashPlan((-(-t * g // rows), b * kh), THREADS, rows, keys, stages,
+                     smem, dtype == torch.bfloat16)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, T, H, hd]; k, v: [B, S, K, hd] (one dtype, f32 or bf16,
-    CUDA, contiguous; hd 64 or 128; H % K == 0) -> [B, T, H, hd]."""
+    CUDA, contiguous, bf16 16-byte aligned; hd 64 or 128; H % K == 0) ->
+    [B, T, H, hd]."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         build.require_cuda(x, name, DTYPE_CODES, 4)
     b, t, h, hd = q.shape
@@ -46,12 +86,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if b * kh > 65535:
         raise ValueError(f"B*K = {b * kh} exceeds the grid's y limit")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("bf16 q, k and v must be 16-byte aligned")
+    p = plan(b, t, kh, h // kh, hd, q.dtype)
     o = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.flash_prefill(
             build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
             DTYPE_CODES[q.dtype], b, t, s, h, kh, hd, int(causal),
-            int(window), 1.0 / math.sqrt(hd), build.stream_of(q))
+            int(window), 1.0 / math.sqrt(hd), p.smem_bytes,
+            build.stream_of(q))
     build.check(lib, err, "flash_prefill")
     return o

@@ -7,7 +7,8 @@ decides at run time). On the card:
 Tolerances: pred and idx exact (inputs are checked for gaps first);
 conf rtol 1e-4 / atol 1e-6 (fp32 online softmax summed in another order);
 attention f32 atol 1e-4 against the plain version run in f32 on the same
-inputs; bf16 prefill atol 2e-2 (one bf16 rounding of outputs of order 1),
+inputs; bf16 prefill atol 2e-2 (one bf16 rounding of outputs of order 1,
+and the tensor-core kernel's rounding of P to bf16 before P V),
 bf16 decode |err| <= 2^-8 |want| + 1e-3 (one bf16 rounding, at most 2^-8
 relative, and the fp32 sums: a limit that shrinks with the small outputs
 of a softmax over a long cache); maxconf's prediction exact (planted ties resolve to
@@ -112,22 +113,62 @@ def test_fused_head_kernel_matches_plain(dev, b, d, c, wdt):
                    fused_head_gate_ref(h, w, bias, t, b - 1))
 
 
-@pytest.mark.parametrize("b,t,h,kh,hd,window,dtype", [
-    (2, 48, 32, 4, 128, 0, torch.bfloat16),
-    (1, 130, 8, 2, 64, 0, torch.float32),
-    (2, 77, 4, 4, 128, 16, torch.float32),
+@pytest.mark.parametrize("b,t,h,kh,hd,causal,window,dtype", [
+    (2, 48, 32, 4, 128, True, 0, torch.bfloat16),
+    (1, 130, 8, 2, 64, True, 0, torch.float32),
+    (2, 77, 4, 4, 128, True, 16, torch.float32),
+    (1, 1, 32, 4, 128, True, 0, torch.bfloat16),     # T = 1: 8 of 64 rows
+    (1, 1, 8, 2, 128, True, 0, torch.float32),       # T = 1
+    (2, 77, 12, 4, 128, True, 0, torch.bfloat16),    # T*G = 231, S = 77
+    (2, 300, 32, 4, 128, True, 64, torch.bfloat16),  # sliding window
+    (1, 200, 8, 2, 128, False, 0, torch.bfloat16),   # non-causal
+    (1, 100, 4, 4, 64, False, 24, torch.bfloat16),   # non-causal window
+    (2, 130, 8, 2, 64, True, 0, torch.bfloat16),     # hd 64
+    (1, 1000, 32, 4, 128, True, 0, torch.bfloat16),  # 16 key tiles, ragged
+    (2, 1100, 32, 4, 128, True, 0, torch.bfloat16),  # T*G % 64 = 32
+    (4, 600, 32, 4, 128, False, 100, torch.bfloat16),
+    (8, 300, 16, 2, 64, True, 0, torch.bfloat16),
 ])
-def test_flash_kernel_matches_plain(dev, b, t, h, kh, hd, window, dtype):
+def test_flash_kernel_matches_plain(dev, b, t, h, kh, hd, causal, window,
+                                    dtype):
     rng = np.random.default_rng(t + h)
     mk = lambda n: torch.from_numpy(  # noqa: E731
         rng.standard_normal((b, t, n, hd)).astype(np.float32)).to(dev)
     q, k, v = mk(h).to(dtype), mk(kh).to(dtype), mk(kh).to(dtype)
-    got = attention(q, k, v, causal=True, window=window)
-    want = attention_ref(q.float(), k.float(), v.float(), causal=True,
+    before = launch_counts()["flash_attention"]
+    got = attention(q, k, v, causal=causal, window=window)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal,
                          window=window)
     torch.cuda.synchronize()
+    assert launch_counts()["flash_attention"] == before + 1
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert got.dtype == dtype
+    assert float((got.float() - want).abs().max()) <= atol
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernel_reads_nothing_past_t_or_s(dev, causal, dtype):
+    """q, k and v are each the head of a buffer whose tail is NaN: a read
+    past T (the ragged last row tile, T*G = 231 rows) or past S (the
+    ragged last key tile, S = 77) makes the output non-finite."""
+    b, t, h, kh, hd = 1, 77, 12, 4, 128
+    rng = np.random.default_rng(3)
+
+    def mk(n):
+        size = b * t * n * hd
+        buf = torch.full((size + 8192,), float("nan"), dtype=dtype,
+                         device=dev)
+        buf[:size] = torch.from_numpy(
+            rng.standard_normal(size).astype(np.float32)).to(dev).to(dtype)
+        return buf[:size].view(b, t, n, hd)
+
+    q, k, v = mk(h), mk(kh), mk(kh)
+    got = attention(q, k, v, causal=causal)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((got.float() - want).abs().max()) <= atol
 
 
@@ -167,6 +208,13 @@ def test_maxconf_kernel_matches_plain(dev, b, v, dtype):
     (3, 77, 8, 2, 64, [1, 77, 40], torch.float32),
     (2, 100, 16, 1, 64, [100, 31], torch.bfloat16),
     (2, 96, 4, 4, 64, [96, 5], torch.float32),
+    # kv_len on tile and split boundaries (chunk 64 at this shape)
+    (8, 544, 32, 4, 128, [32, 64, 128, 96, 544, 65, 63, 33], torch.bfloat16),
+    # kv_len = 1 inside a split of 11 tiles
+    (2, 16384, 32, 4, 128, [1, 5000], torch.bfloat16),
+    (2, 1000, 32, 4, 128, [1000, 999], torch.bfloat16),  # S % 32 != 0
+    (2, 100, 12, 4, 64, [100, 50], torch.bfloat16),      # G = 3, padded
+    (2, 300, 16, 1, 128, [300, 129], torch.float32),     # 138 KB shared
 ])
 def test_decode_kernel_matches_plain(dev, b, s, h, kh, hd, lens, dtype):
     rng = np.random.default_rng(s + h)
@@ -215,6 +263,11 @@ def test_wrappers_raise_on_what_kernels_do_not_take(dev):
     q = torch.zeros(1, 8, 4, 32, device=dev)
     with pytest.raises(ValueError, match="head dim"):
         attention(q, q, q)
+    # the bf16 kernel's 16-byte copies need aligned rows
+    off = torch.zeros(8 * 4 * 64 + 1, dtype=torch.bfloat16,
+                      device=dev)[1:].view(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        attention(off, off, off)
     # a callable supervisor has no kernel yet: never the plain version
     margin = lambda lg: lg.max(-1).values - lg.mean(-1)  # noqa: E731
     with pytest.raises(ValueError, match="softmax family"):

@@ -34,7 +34,8 @@ from repro.kernels.maxconf.ref import maxconf_ref as jax_maxconf_ref  # noqa: E4
 from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import decode_attn, launch_counts  # noqa: E402
 from repro_torch.kernels.maxconf.ops import maxconf  # noqa: E402
-from repro_torch.kernels.decode_attention.kernel import splits  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    KEY_TILE, SM_COUNT, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED, splits)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.maxconf.ref import maxconf_ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
@@ -211,6 +212,31 @@ def test_decode_attn_on_cpu_runs_the_plain_version_uncounted():
 @pytest.mark.parametrize("b,kh,s", [(8, 4, 544), (8, 4, 16384), (1, 1, 7),
                                     (2, 8, 97), (64, 8, 4096)])
 def test_decode_splits_cover_the_cache_in_whole_tiles(b, kh, s):
-    nsplit, chunk = splits(b, kh, s)
-    assert chunk % 32 == 0 and chunk >= 64
-    assert nsplit * chunk >= s > (nsplit - 1) * chunk
+    p = splits(b, kh, s, 8, 128, 2)
+    assert p.chunk % KEY_TILE == 0 and p.chunk >= 2 * KEY_TILE
+    assert p.nsplit * p.chunk >= s > (p.nsplit - 1) * p.chunk
+
+
+@pytest.mark.parametrize("b,kh,s,g,hd,esz", [
+    (8, 4, 544, 8, 128, 2),       # the generate path's last step
+    (8, 4, 16384, 8, 128, 2),     # a long context
+    (8, 4, 544, 8, 128, 4),       # f32
+    (2, 1, 100, 16, 64, 2),
+    (2, 1, 300, 16, 128, 4),      # the largest shared memory
+    (3, 2, 77, 3, 64, 4),         # G = 3, padded to 4
+    (1, 1, 7, 1, 64, 2),
+])
+def test_decode_plan_keeps_bytes_in_flight(b, kh, s, g, hd, esz):
+    """The ring holds >= 3 tiles, the shared memory fits a block, the SM's
+    resident blocks keep >= 50 KB in flight (twice 3.35 TB/s x ~1 us
+    over 132 SMs), and the grid is one wave of resident blocks."""
+    p = splits(b, kh, s, g, hd, esz)
+    assert p.stages >= 3
+    assert p.group_pad >= g and p.group_pad & (p.group_pad - 1) == 0
+    assert p.smem_bytes <= SMEM_PER_BLOCK
+    assert p.resident * (p.smem_bytes + SMEM_RESERVED) <= SMEM_PER_SM
+    assert p.inflight_bytes >= 50_000
+    assert p.nsplit == 1 or p.nsplit * b * kh <= SM_COUNT * p.resident
+    assert p.chunk % KEY_TILE == 0
+    assert p.nsplit * p.chunk >= s > (p.nsplit - 1) * p.chunk
+    assert splits(b, kh, s, g, hd, esz) is p      # cached per shape
