@@ -12,8 +12,8 @@ toolkit. In order, it
    widths (and a 16384-token cache for decode attention, and MDSA at
    [256, 4096] x [4096, 4096]), and times kernel, plain version and
    (where one PyTorch call computes the same function) the library call
-   with CUDA events, and the attention kernels' own device time with
-   torch.profiler (the wrapper's host work left out);
+   with CUDA events, and the attention, scan and MDSA kernels' own
+   device time with torch.profiler (the wrapper's host work left out);
 4. checks the remote model's prefill and its decode steps on the card
    against the CPU on reduced configs (yi-6b; h2o-danube, whose
    sliding-window ring buffer wraps; rwkv6), then serves 256 requests through
@@ -61,7 +61,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}   # dense, data sheet
+PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}  # dense
 SERVE_ARGV = ["--requests", "256", "--batch", "32", "--remote-budget", "0.3"]
 FUSED_REQUESTS = 64
 CONF_TOL = 1e-4        # the gate kernels' confidence tolerance (conf <= 1)
@@ -494,6 +494,8 @@ def check_rwkv6_scan(dev, b: int, t: int, h: int, m: int, dtype,
     out = torch.empty_like(s0)
     k_ms = time_ms(lambda: rk.rwkv6_scan(r, k, v, w, u, s0, out),
                    samples=21, inner=3 if t > 64 else 10)
+    dev_ms = device_ms(lambda: rk.rwkv6_scan(r, k, v, w, u, s0, out),
+                       ("rwkv6_scan_kernel",))
     p_ms = time_ms(lambda: rwkv6_scan_ref(r, k, v, w, u, s0), samples=21,
                    inner=1, warmup=2)
     n_tok = b * t * h
@@ -505,9 +507,10 @@ def check_rwkv6_scan(dev, b: int, t: int, h: int, m: int, dtype,
            "dtype": f"r/k/v {str(dtype).split('.')[-1]}, w/u/state float32",
            "aliased_state": aliased, "max_abs_err": err,
            "share_of_limit": used, "rtol_of_max": RWKV_TOL,
-           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-           "bound_ms": bnd, "bound_by": by}
+           "kernel_ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+           "library_ms": None, "bound_ms": bnd, "bound_by": by}
     log(row)
+    not_below_bound(row)
     return row
 
 
@@ -537,7 +540,9 @@ def check_rwkv6_carry(dev) -> dict:
 def check_mdsa(dev, b: int, d: int, seed: int) -> dict:
     """MDSA distance at [B, D] x [D, D] (P symmetric positive definite)
     against its plain version with TF32 off; library: one einsum on
-    y = x - mu."""
+    y = x - mu. The bound is the least time for an fp32-accurate result
+    on this card, three TF32 tensor-core products (3xTF32, as the kernel
+    computes); the fp32 CUDA-core figure is kept beside it."""
     from repro_torch.kernels.mdsa import kernel as mk
     from repro_torch.kernels.mdsa.ref import mdsa_ref
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -559,20 +564,36 @@ def check_mdsa(dev, b: int, d: int, seed: int) -> dict:
         f"mdsa {tag} max err {err} ({used:.2f} of the limit)"
     inner = 3 if d >= 1024 else 10
     k_ms = time_ms(lambda: mk.mdsa(x, mean, prec), samples=21, inner=inner)
+    dev_ms = device_ms(lambda: mk.mdsa(x, mean, prec),
+                       ("mdsa_partial_kernel", "mdsa_finish_kernel"))
     p_ms = time_ms(lambda: mdsa_ref(x, mean, prec), samples=21, inner=inner)
     y = x - mean
     lib_ms = time_ms(lambda: torch.einsum("bd,de,be->b", y, prec, y),
                      samples=21, inner=inner)
-    bnd, by = bound(4.0 * (b * d + d + d * d + b),
-                    2.0 * b * d * d + 3.0 * b * d, "fp32")
+    nbytes = 4.0 * (b * d + d + d * d + b)
+    bnd, by = bound(nbytes, 3 * 2.0 * b * d * d, "tf32")
     row = {"kernel": "mdsa", "shape": [[b, d], [d, d]], "dtype": "float32",
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "max_abs_err": err, "rtol": MDSA_RTOL, "atol": MDSA_RTOL,
-           "share_of_limit": used, "kernel_ms": k_ms, "plain_ms": p_ms,
-           "library_ms": lib_ms, "library": "einsum bd,de,be->b on x - mu",
-           "bound_ms": bnd, "bound_by": by}
+           "share_of_limit": used, "kernel_ms": k_ms, "device_ms": dev_ms,
+           "plain_ms": p_ms, "library_ms": lib_ms,
+           "library": "einsum bd,de,be->b on x - mu",
+           "bound_ms": bnd, "bound_by": by,
+           "bound_fp32_cuda_core_ms": bound(
+               nbytes, 2.0 * b * d * d + 3.0 * b * d, "fp32")[0]}
     log(row)
+    not_below_bound(row)
     return row
+
+
+def not_below_bound(row: dict) -> None:
+    """No time may read faster than the least time the card could take:
+    that would be a wrong bound or a kernel that skipped work."""
+    for key in ("kernel_ms", "device_ms"):
+        if row.get(key) is not None:
+            assert row[key] >= row["bound_ms"], \
+                f"{row['kernel']} {row['shape']}: {key} {row[key]} below " \
+                f"its bound {row['bound_ms']}"
 
 
 def kernel_phase(dev) -> dict:

@@ -189,56 +189,6 @@ constexpr int mma_smem_bytes(int hd) {
          1024;
 }
 
-// byte offset of 16-byte chunk c of row r in a [ROWS, HD] bf16 tile kept
-// as HD/64 column atoms of [ROWS][128 B]: in each group of 8 rows (1024
-// bytes) chunk c % 8 sits at (c % 8) ^ (r % 8). That is the 128-byte
-// swizzle that wgmma's descriptors read (and no two of 8 rows share banks)
-template <int ROWS>
-__device__ __forceinline__ uint32_t atom_off(int r, int c) {
-  return (c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand at
-// shared address addr (1024-byte-aligned atoms): lbo, sbo in bytes
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// ties registers to the surrounding wgmma fences and waits: the compiler
-// neither touches an accumulator while a wgmma may own it nor computes a
-// wgmma's input inside a batch (which makes ptxas serialise the batch)
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint64_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+l"(r[i])::"memory");
-}
-// cp.async writes through the generic proxy; wgmma reads through the
-// async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // S[64 rows x 64 keys] (+)= Q K^T for one k-step of 16, both operands
 // K-major from shared memory
 __device__ __forceinline__ void wgmma_s(float* d, uint64_t da, uint64_t db,

@@ -42,8 +42,10 @@ from repro_torch.kernels.fused_head_gate.ops import fused_head_gate  # noqa: E40
 from repro_torch.kernels.fused_head_gate.ref import fused_head_gate_ref  # noqa: E402
 from repro_torch.kernels.maxconf.ops import maxconf  # noqa: E402
 from repro_torch.kernels.maxconf.ref import maxconf_ref  # noqa: E402
+from repro_torch.kernels.mdsa.kernel import plan as mdsa_plan  # noqa: E402
 from repro_torch.kernels.mdsa.ops import mdsa_distance  # noqa: E402
 from repro_torch.kernels.mdsa.ref import mdsa_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan.kernel import CHUNK  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: E402
 
@@ -389,6 +391,38 @@ def test_rwkv6_scan_kernel_reads_nothing_past_its_inputs(dev):
     scan_close((y, s_t), rwkv6_scan_ref(*args))
 
 
+@pytest.mark.parametrize("m,dtype", [
+    (16, torch.bfloat16), (32, torch.bfloat16),
+    (16, torch.float32), (32, torch.float32)])
+def test_rwkv6_scan_kernel_small_heads_past_two_chunks(dev, m, dtype):
+    """M = 16 and 32 (fewer state rows per thread) over T = 2 chunks + 7,
+    the last chunk clipped, with NaN after every input."""
+    t = 2 * CHUNK + 7
+    args = scan_inputs(dev, 3, t, 5, m, dtype, seed=m + t, tail=4096)
+    got = rwkv6_scan(*args)
+    scan_close(got, rwkv6_scan_ref(*(a.float() for a in args)))
+
+
+def test_rwkv6_scan_kernel_is_deterministic(dev):
+    """Two calls on the same inputs give the same bits (one writer per
+    output element, sums in a fixed order)."""
+    args = scan_inputs(dev, 8, 512, 32, 64, torch.bfloat16, seed=90)
+    y1, s1 = rwkv6_scan(*args)
+    y2, s2 = rwkv6_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_rwkv6_scan_raises_on_inputs_its_copies_cannot_take(dev):
+    """The kernel's 16-byte copies need r, k, v and w 16-byte aligned."""
+    r, k, v, w, u, s0 = scan_inputs(dev, 2, 4, 2, 64, torch.bfloat16, seed=1)
+    buf = torch.empty(r.numel() + 1, dtype=r.dtype, device=dev)
+    shifted = buf[1:].view(r.shape)
+    shifted.copy_(r)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rwkv6_scan(shifted, k, v, w, u, s0)
+
+
 # ------------------------------------------------------------------ MDSA
 
 def mdsa_inputs(dev, b, d, seed, tail=0):
@@ -425,6 +459,55 @@ def test_mdsa_kernel_reads_nothing_past_its_inputs(dev):
     got = mdsa_distance(x, mean, prec)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
+    assert torch.allclose(got, mdsa_ref(x, mean, prec), rtol=1e-4, atol=1e-4)
+
+
+def test_mdsa_kernel_sees_only_the_symmetric_part(dev):
+    """P = SPD + an antisymmetric part of the same Frobenius norm: a
+    quadratic form sees only P's symmetric part, so the distance is the
+    SPD's. Holds the kernel's Y P^T form for a P that is not symmetric."""
+    b, d = 256, 1024
+    x, mean, spd = mdsa_inputs(dev, b, d, seed=80)
+    rng = np.random.default_rng(81)
+    c = torch.from_numpy(rng.standard_normal((d, d), np.float32)).to(dev)
+    anti = c - c.T
+    anti *= torch.linalg.norm(spd) / torch.linalg.norm(anti)
+    got = mdsa_distance(x, mean, (spd + anti).contiguous())
+    torch.cuda.synchronize()
+    assert torch.allclose(got, mdsa_ref(x, mean, spd), rtol=1e-4, atol=1e-4)
+
+
+def test_mdsa_kernel_is_deterministic(dev):
+    """Two calls give the same bits: the depth slices' partial sums are
+    added in a fixed order by the second pass, with no atomics."""
+    assert mdsa_plan(256, 4096).splits > 1
+    x, mean, prec = mdsa_inputs(dev, 256, 4096, seed=82)
+    a = mdsa_distance(x, mean, prec)
+    b = mdsa_distance(x, mean, prec)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("b,d", [(33, 61), (1, 7), (130, 2050)])
+def test_mdsa_kernel_without_16_byte_rows(dev, b, d):
+    """D not a multiple of 4: rows are not 16-byte aligned, so the kernel
+    copies 4 bytes at a time; NaN follows every input."""
+    x, mean, prec = mdsa_inputs(dev, b, d, seed=b + d, tail=4096)
+    got = mdsa_distance(x, mean, prec)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.allclose(got, mdsa_ref(x, mean, prec), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,d", [(128, 257), (64, 260)])
+def test_mdsa_kernel_just_past_a_depth_slice(dev, b, d):
+    """The last depth slice holds 1 (or 4) columns of D."""
+    p = mdsa_plan(b, d)
+    assert p.splits > 1 and (p.splits - 1) * p.slice_len < d
+    assert d - (p.splits - 1) * p.slice_len <= 4
+    x, mean, prec = mdsa_inputs(dev, b, d, seed=d, tail=4096)
+    got = mdsa_distance(x, mean, prec)
+    torch.cuda.synchronize()
     assert torch.allclose(got, mdsa_ref(x, mean, prec), rtol=1e-4, atol=1e-4)
 
 

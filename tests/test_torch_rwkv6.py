@@ -43,6 +43,7 @@ from repro.serving.engine import BILLING_FIELDS  # noqa: E402
 from repro.serving.generate import greedy_generate as jax_generate  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.supervisors import max_softmax  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import kernel as rk  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -152,6 +153,65 @@ def test_scan_state_carry():
     np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(),
                                y_full.numpy(), atol=1e-5)
     np.testing.assert_allclose(state.numpy(), s_full.numpy(), atol=1e-5)
+
+
+# The CUDA kernel's summation order (csrc/rwkv6_scan.cu), emulated on the
+# CPU in fp32: the state cut into 8 row groups of M/8 rows; each group's
+# partial of y_t[j] is one chain over its rows of r_i S_ij, plus v_j times
+# the group's chain of (r_i u_i) k_i; the 8 partials are reduced as the
+# kernel's xor-4, xor-2, xor-1 shuffles do, ((p0 + p4) + (p2 + p6)) +
+# ((p1 + p5) + (p3 + p7)).
+
+def scan_kernel_order(r, k, v, w, u, s0, groups=rk.ROW_GROUPS):
+    b, t, h, m = r.shape
+    a = m // groups
+    s = s0.clone().view(b, h, groups, a, m)
+    ug = u.view(h, groups, a)
+    ys = []
+    for tt in range(t):
+        rt, kt, wt = (z[:, tt].view(b, h, groups, a) for z in (r, k, w))
+        vj = v[:, tt]                                      # [B, H, M]
+        bq = torch.zeros(b, h, groups)
+        p = torch.zeros(b, h, groups, m)
+        for ii in range(a):
+            bq = bq + rt[..., ii] * ug[..., ii] * kt[..., ii]
+            p = p + rt[..., ii, None] * s[..., ii, :]
+        p = p + vj[:, :, None, :] * bq[..., None]
+        lvl1 = [p[:, :, g] + p[:, :, g + 4] for g in range(4)]
+        ys.append((lvl1[0] + lvl1[2]) + (lvl1[1] + lvl1[3]))
+        s = wt[..., None] * s + kt[..., None] * vj[:, :, None, None, :]
+    return torch.stack(ys, 1), s.view(b, h, m, m)
+
+
+@pytest.mark.parametrize("b,t,h,m", [(2, 70, 3, 64), (2, 70, 3, 32),
+                                     (1, 40, 2, 16), (3, 1, 2, 64)])
+def test_scan_kernel_summation_order_matches_jax(b, t, h, m):
+    """The kernel's order of sums against JAX's oracle within the chip
+    check's RWKV_TOL: |err| <= 2e-5 max|want| + 1e-5, for y and s_T,
+    with the decay spread as the full-width check draws it."""
+    rng = np.random.default_rng(b + t + m)
+    n = lambda *sh: rng.standard_normal(sh).astype(np.float32)  # noqa: E731
+    r, k, v = (0.5 * n(b, t, h, m) for _ in range(3))
+    w = np.exp(-np.exp(n(b, t, h, m) - 3.0)).astype(np.float32)
+    arrs = (r, k, v, w, 0.5 * n(h, m), 0.5 * n(b, h, m, m))
+    got = scan_kernel_order(*torch_args(arrs))
+    want = jax_scan_ref(*map(jnp.asarray, arrs))
+    for g, x in zip(got, want):
+        x = np.asarray(x)
+        assert np.abs(g.numpy() - x).max() <= 2e-5 * np.abs(x).max() + 1e-5
+
+
+def test_scan_plan_is_cached_per_shape():
+    p = rk.plan(8, 1, 32, 64, torch.bfloat16)
+    assert rk.plan(8, 1, 32, 64, torch.bfloat16) is p
+    assert p.args == (rk.DTYPE_CODES[torch.bfloat16], 8, 1, 32, 64)
+    assert p.u_shape == (32, 64) and p.s_shape == (8, 32, 64, 64)
+    assert rk.plan(8, 512, 32, 64, torch.float32).args[0] == \
+        rk.DTYPE_CODES[torch.float32]
+    with pytest.raises(ValueError, match="head size"):
+        rk.plan(8, 1, 16, 128, torch.float32)
+    with pytest.raises(ValueError, match="T >= 1"):
+        rk.plan(8, 0, 32, 64, torch.float32)
 
 
 # ------------------------------------------------------------ the layers

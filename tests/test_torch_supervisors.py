@@ -36,8 +36,10 @@ from repro_torch.core import cascade  # noqa: E402
 from repro_torch.core import metrics  # noqa: E402
 from repro_torch.core import supervisors as sup  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels.mdsa import kernel as mk  # noqa: E402
 from repro_torch.kernels.mdsa.ops import mdsa_distance  # noqa: E402
 from repro_torch.kernels.mdsa.ref import mdsa_ref  # noqa: E402
+
 
 
 def rnd(seed, shape, scale=1.0):
@@ -114,6 +116,99 @@ def test_mdsa_ref_matches_pallas_kernel(b, d):
     want = np.asarray(jax_mdsa(*map(jnp.asarray, arrs), force_pallas=True,
                                interpret=True))
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+# The CUDA kernel's arithmetic (csrc/mdsa.cu), emulated on the CPU: Z = Y
+# P^T in 3xTF32 (each operand split into big = tf32(v), rounded to
+# nearest with ties away as cvt.rna rounds, and small = v - big truncated
+# to TF32; small.big + big.small + big.big, fp32 sums of exact products),
+# each depth slice's Z folded per column tile into a partial row sum, the
+# partials summed in the kernel's fixed order.
+
+def tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 (10 mantissa bits) by bits, round to nearest with
+    ties away from zero, as the kernel's integer rounding does."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(a: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 by dropping the low 13 bits (toward zero)."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def mdsa_3xtf32(x, mean, prec):
+    b, d = x.shape
+    p = mk.plan(b, d)
+    y = x - mean
+    yb, pb = tf32_rna(y), tf32_rna(prec)
+    ys, ps = tf32_trunc(y - yb), tf32_trunc(prec - pb)
+    parts = []
+    for s in range(p.splits):
+        ks = slice(s * p.slice_len, min(d, (s + 1) * p.slice_len))
+        z = (ys[:, ks] @ pb[:, ks].T + yb[:, ks] @ ps[:, ks].T) \
+            + yb[:, ks] @ pb[:, ks].T
+        for jt in range(p.col_tiles):
+            js = slice(jt * mk.COL_TILE, (jt + 1) * mk.COL_TILE)
+            parts.append((z[:, js] * y[:, js]).sum(1))
+    d2 = torch.zeros(b)
+    for part in parts:
+        d2 = d2 + part
+    return torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+def mdsa_kernel_inputs(b, d, seed, antisymmetric=False):
+    """x normal, mean 0.3 normal, P = A A^T 0.09 / D + I as the chip check
+    draws it; ``antisymmetric`` adds C - C^T of P's Frobenius norm."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((d, d), np.float32)
+    prec = (a @ a.T * (0.09 / d) + np.eye(d, dtype=np.float32))
+    if antisymmetric:
+        c = rng.standard_normal((d, d), np.float32)
+        prec = prec + (c - c.T) * (np.linalg.norm(prec)
+                                   / np.linalg.norm(c - c.T))
+    x = rng.standard_normal((b, d), np.float32)
+    mean = 0.3 * rng.standard_normal(d).astype(np.float32)
+    return x, mean, prec.astype(np.float32)
+
+
+@pytest.mark.parametrize("b,d,anti", [(256, 1024, False), (1024, 64, False),
+                                      (100, 200, False), (256, 1024, True),
+                                      (33, 61, True)])
+def test_mdsa_kernel_3xtf32_arithmetic_matches_jax(b, d, anti):
+    """The kernel's 3xTF32 Y P^T form (emulated) against JAX's oracle
+    within the MDSA tolerance 1e-4, for P symmetric or not; it keeps
+    fp32 accuracy, using under a tenth of that limit."""
+    arrs = mdsa_kernel_inputs(b, d, seed=b + d, antisymmetric=anti)
+    got = mdsa_3xtf32(*map(t_, arrs)).numpy()
+    want = np.asarray(jax_mdsa_ref(*map(jnp.asarray, arrs)))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert np.max(np.abs(got - want) / (1e-4 * np.abs(want) + 1e-4)) < 0.1
+
+
+@pytest.mark.parametrize("b,d", [(1, 1), (1, 7), (33, 61), (100, 200),
+                                 (1024, 64), (128, 257), (64, 260),
+                                 (256, 4096), (129, 4100), (5000, 3)])
+def test_mdsa_plan_covers_every_row_column_and_depth_once(b, d):
+    """The kernel's blocks are the product of row tiles, column tiles and
+    depth slices; each axis is cut into non-empty ranges that cover it
+    exactly once, so every (row, column, depth) of [B, D] x [D, D] is
+    one block's. Slices are whole pipeline steps and fill the card."""
+    p = mk.plan(b, d)
+    assert mk.plan(b, d) is p                   # cached per shape
+    for n, tile, count in ((b, mk.ROW_TILE, p.row_tiles),
+                           (d, mk.COL_TILE, p.col_tiles),
+                           (d, p.slice_len, p.splits)):
+        cover = np.zeros(n, int)
+        for i in range(count):
+            lo, hi = i * tile, min(n, (i + 1) * tile)
+            assert lo < hi
+            cover[lo:hi] += 1
+        assert (cover == 1).all()
+    assert p.slice_len % mk.DEPTH_STEP == 0
+    assert p.parts == p.splits * p.col_tiles
+    blocks = p.row_tiles * p.col_tiles * p.splits
+    assert p.splits == 1 or blocks <= mk.SM_COUNT * mk.RESIDENT
 
 
 def test_mdsa_cpu_tensors_never_count_a_launch():
