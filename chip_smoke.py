@@ -12,8 +12,10 @@ toolkit. In order, it
    widths (and a 16384-token cache for decode attention, and MDSA at
    [256, 4096] x [4096, 4096]), and times kernel, plain version and
    (where one PyTorch call computes the same function) the library call
-   with CUDA events, and the attention, scan and MDSA kernels' own
-   device time with torch.profiler (the wrapper's host work left out);
+   with CUDA events, and every kernel's own device time and device
+   kernels per call with torch.profiler (the wrapper's host work left
+   out); maxconf at [32, 152064] and the gate's score at [32, 64000] are
+   timed over copies of their logits larger than the L2;
 4. checks the remote model's prefill and its decode steps on the card
    against the CPU on reduced configs (yi-6b; h2o-danube, whose
    sliding-window ring buffer wraps; rwkv6), then serves 256 requests through
@@ -45,6 +47,7 @@ written to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -131,14 +134,23 @@ def _device_us(e) -> float:
     return 0.0
 
 
-def device_ms(fn, marks: tuple[str, ...], calls: int = 20) -> float | None:
-    """Device time of one call of ``fn``: the device time of the kernels
-    whose names contain one of ``marks``, summed over ``calls``
-    back-to-back calls under torch.profiler, per call. The wrapper's host
-    work is not in it (it is in the CUDA-event times, where it sets the
-    pace at small shapes). The profiler has come back empty now and
-    then, so an empty trace is taken once more; None where the second one
-    records no device time either."""
+def _is_kernel(e) -> bool:
+    return (str(getattr(e, "device_type", "")).endswith("CUDA")
+            and _device_us(e) > 0)
+
+
+def device_ms(fn, marks: tuple[str, ...],
+              calls: int = 20) -> tuple[float | None, int]:
+    """(device time of one call of ``fn``, device kernels per call):
+    ``calls`` back-to-back calls run under torch.profiler; each kernel
+    whose name contains one of ``marks`` counts its mean time per launch
+    once for each launch per call, and every device kernel of any name
+    counts towards the launches per call. The wrapper's host work is not
+    in it (it is in the CUDA-event times, where it sets the pace at small
+    shapes). The profiler drops an event now and then (37 of 40 once, at
+    1.3 ms kernels), so launches per call are rounded, and it has come
+    back empty, so an empty trace is taken once more; the time is None
+    where the second one records no device time either."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -147,11 +159,58 @@ def device_ms(fn, marks: tuple[str, ...], calls: int = 20) -> float | None:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_device_us(e) for e in prof.key_averages()
-                 if any(m in e.key for m in marks))
+        kern = [e for e in prof.key_averages() if _is_kernel(e)]
+        us = sum(_device_us(e) / e.count * round(e.count / calls)
+                 for e in kern if any(m in e.key for m in marks))
         if us:
-            return us / 1e3 / calls
-    return None
+            return us / 1e3, round(sum(e.count for e in kern) / calls)
+    return None, 0
+
+
+# the gate family's kernels as built: the profiler marks naming them and
+# the device kernels one call runs. A mark naming no kernel that is built
+# measures nothing, so the count is checked and a count of 0 fails
+DEVICE_KERNELS = {
+    "gate_score": (("vocab_stats_kernel",), 1),
+    "gate_select": (("gate_select_kernel",), 1),
+    "fused_head_gate": (("head_gate_kernel", "gate_finish_kernel"), 2),
+    "maxconf": (("vocab_stats_kernel",), 1),
+}
+
+
+def profiled(name: str, fn) -> dict:
+    """Device time and kernels per call of ``fn``, one call of kernel
+    ``name``'s wrapper; raises unless the profiler saw exactly the
+    kernels that ``name`` is built from."""
+    marks, want = DEVICE_KERNELS[name]
+    ms, per_call = device_ms(fn, marks)
+    assert ms and per_call == want, \
+        f"{name}: {per_call} device kernels per call under {marks} " \
+        f"(device time {ms}), expected {want}"
+    return {"device_ms": ms, "device_kernels_per_call": per_call}
+
+
+L2_BYTES = 50e6                   # H100 SXM L2 cache
+
+
+def cold_copies(t: torch.Tensor) -> list[torch.Tensor]:
+    """``t`` and copies of it, together at least twice the L2: a call
+    cycling through them reads its input from device memory."""
+    n = max(2, math.ceil(2 * L2_BYTES / (t.numel() * t.element_size())))
+    return [t] + [t.clone() for _ in range(n - 1)]
+
+
+def amax_yardstick(inputs: list) -> float | None:
+    """Device time of torch.amax over the rows of ``inputs``, cycled as
+    the kernel's timing cycles them: one PyTorch reduction reading the
+    same bytes (not the same function: no library_ms)."""
+    return device_ms(cycling(lambda t: torch.amax(t, 1), inputs), ("",))[0]
+
+
+def cycling(fn, inputs: list):
+    """A thunk calling ``fn`` on the next of ``inputs`` each time."""
+    nxt = itertools.cycle(inputs).__next__
+    return lambda: fn(nxt())
 
 
 # ----------------------------------------------------------------------------
@@ -194,7 +253,11 @@ def mid_threshold(conf: torch.Tensor, n_valid: int) -> float:
 # kernel phase
 # ----------------------------------------------------------------------------
 
-def check_gate(dev, b: int, c: int, seed: int) -> dict:
+def check_gate(dev, b: int, c: int, seed: int, cold: bool = False) -> dict:
+    """The gate's score and select at [B, C] f32 against their plain
+    versions; with ``cold`` the score is timed over copies of the logits
+    larger than the L2 (on the serve path the logits arrive fresh from
+    the local head and are timed back to back)."""
     from repro_torch.core.supervisors import max_softmax
     from repro_torch.kernels.confidence_gate import kernel as gk
     from repro_torch.kernels.confidence_gate import ops as gops
@@ -222,25 +285,34 @@ def check_gate(dev, b: int, c: int, seed: int) -> dict:
 
     tt = torch.tensor(t, dtype=torch.float32, device=dev)
     nn = torch.tensor(n_valid, dtype=torch.int32, device=dev)
-    score_ms = time_ms(lambda: gk.gate_score(logits, "max_softmax"))
+    inputs = cold_copies(logits) if cold else [logits]
+    score = cycling(lambda lg: gk.gate_score(lg, "max_softmax"), inputs)
+    score_ms = time_ms(score)
+    score_dev = profiled("gate_score", score)
     score_plain = time_ms(lambda: (max_softmax(logits),
                                    logits.argmax(-1).int()))
     conf = got["conf"]
     select_ms = time_ms(lambda: gk.gate_select(conf, tt, nn, b))
+    select_dev = profiled("gate_select",
+                          lambda: gk.gate_select(conf, tt, nn, b))
     select_plain = time_ms(lambda: select_ref(conf, tt, nn, b))
     sb, sby = bound(b * c * 4 + b * 8, 6.0 * b * c, "fp32")
     lb, lby = bound(b * 4 + 8 + b * 4, 4.0 * b * b, "fp32")
     rows = [
         {"kernel": "gate_score", "shape": [b, c], "dtype": "float32",
-         "max_abs_err": err, "kernel_ms": score_ms, "plain_ms": score_plain,
-         "library_ms": None, "bound_ms": sb, "bound_by": sby},
+         "max_abs_err": err, "kernel_ms": score_ms, **score_dev,
+         "cold_l2_copies": len(inputs) if cold else None,
+         "amax_device_ms": amax_yardstick(inputs) if cold else None,
+         "plain_ms": score_plain, "library_ms": None, "bound_ms": sb,
+         "bound_by": sby},
         {"kernel": "gate_select", "shape": [b], "dtype": "float32",
          "max_abs_err": float((got["idx"] - want["idx"]).abs().max()),
-         "kernel_ms": select_ms, "plain_ms": select_plain,
+         "kernel_ms": select_ms, **select_dev, "plain_ms": select_plain,
          "library_ms": None, "bound_ms": lb, "bound_by": lby},
     ]
     for r in rows:
         log(r)
+        not_below_bound(r)
     return {r["kernel"]: r for r in rows}
 
 
@@ -286,8 +358,11 @@ def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int) -> dict:
         f"fused head conf {tag} max err {err}"
     assert torch.equal(got["pred"], want["pred"]), f"fused head pred {tag}"
     assert torch.equal(got["idx"], want["idx"]), f"fused head idx {tag}"
-    k_ms = time_ms(lambda: fk.fused_head_gate(hd_, wd_, bd_, "max_softmax"),
-                   samples=21, inner=3)
+    def head():
+        return fk.fused_head_gate(hd_, wd_, bd_, "max_softmax")
+
+    k_ms = time_ms(head, samples=21, inner=3)
+    head_dev = profiled("fused_head_gate", head)
     def plain():
         logits = head_logits(hd_, wd_, bd_)
         return max_softmax(logits), logits.argmax(-1).int()
@@ -298,9 +373,11 @@ def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int) -> dict:
                     2.0 * b * d * c, "fp32")
     row = {"kernel": "fused_head_gate", "shape": [[b, d], [d, c]],
            "dtype": f"hidden float32, w {str(w_dtype).split('.')[-1]}",
-           "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
-           "library_ms": None, "bound_ms": bnd, "bound_by": by}
+           "max_abs_err": err, "kernel_ms": k_ms, **head_dev,
+           "plain_ms": p_ms, "library_ms": None, "bound_ms": bnd,
+           "bound_by": by}
     log(row)
+    not_below_bound(row)
     return row
 
 
@@ -327,9 +404,9 @@ def check_flash(dev, b: int, t: int, dtype, seed: int, window: int = 0,
     k_ms = time_ms(lambda: ak.flash_attention(q, k, v, causal=True,
                                               window=window),
                    samples=21, inner=3)
-    dev_ms = device_ms(lambda: ak.flash_attention(q, k, v, causal=True,
-                                                  window=window),
-                       ("flash_wgmma_kernel", "flash_prefill_kernel"))
+    dev_ms, dev_n = device_ms(
+        lambda: ak.flash_attention(q, k, v, causal=True, window=window),
+        ("flash_wgmma_kernel", "flash_prefill_kernel"))
     p_ms = time_ms(lambda: attention_ref(q, k, v, causal=True, window=window),
                    samples=21, inner=3)
     lib_ms = None
@@ -349,6 +426,7 @@ def check_flash(dev, b: int, t: int, dtype, seed: int, window: int = 0,
            "kv_heads": kh, "window": window,
            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
            "atol": atol, "kernel_ms": k_ms, "device_ms": dev_ms,
+           "device_kernels_per_call": dev_n,
            "plain_ms": p_ms, "library_ms": lib_ms, "bound_ms": bnd,
            "bound_by": by}
     log(row)
@@ -382,8 +460,8 @@ def check_decode(dev, b: int, s: int, dtype, seed: int, lens=None,
     assert used <= 1, \
         f"decode attention {tag} max err {err} exceeds {rtol}|want| + {atol}"
     k_ms = time_ms(lambda: dk.decode_attention(q, k, v, kv_len))
-    dev_ms = device_ms(lambda: dk.decode_attention(q, k, v, kv_len),
-                       ("decode_split_kernel", "decode_combine_kernel"))
+    dev_ms, dev_n = device_ms(lambda: dk.decode_attention(q, k, v, kv_len),
+                              ("decode_split_kernel", "decode_combine_kernel"))
     p_ms = time_ms(lambda: decode_attention_ref(q, k, v, kv_len))
     # yardstick: SDPA over the [B, K, S, hd] view with the kv_len mask
     mask = (torch.arange(s, device=dev)[None, :]
@@ -400,15 +478,19 @@ def check_decode(dev, b: int, s: int, dtype, seed: int, lens=None,
            "heads": h, "kv_len": [min(lens), max(lens)],
            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
            "rtol": rtol, "atol": atol, "share_of_limit": used,
-           "kernel_ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+           "kernel_ms": k_ms, "device_ms": dev_ms,
+           "device_kernels_per_call": dev_n, "plain_ms": p_ms,
            "library_ms": lib_ms, "bound_ms": bnd, "bound_by": by}
     log(row)
     return row
 
 
-def check_maxconf(dev, b: int, v: int, seed: int) -> dict:
+def check_maxconf(dev, b: int, v: int, seed: int, cold: bool = False) -> dict:
     """maxconf at [B, V] f32 with planted maxima (and, on every other
-    row, a planted tie at a later column: the first index must win)."""
+    row, a planted tie at a later column: the first index must win).
+    With ``cold`` it is timed over copies of the logits larger than the
+    L2 (on the generate path the logits arrive fresh from the head GEMM
+    and are timed back to back)."""
     from repro_torch.kernels.maxconf import kernel as mk
     from repro_torch.kernels.maxconf.ref import maxconf_ref
     rng = np.random.default_rng(seed)
@@ -435,14 +517,21 @@ def check_maxconf(dev, b: int, v: int, seed: int) -> dict:
             "entropy": 2e-6 * float(np.abs(x).max()) + 1e-5}
     for key, e in errs.items():
         assert e <= tols[key], f"maxconf {key} {tag} max err {e}"
-    k_ms = time_ms(lambda: mk.maxconf(logits))
+    inputs = cold_copies(logits) if cold else [logits]
+    call = cycling(mk.maxconf, inputs)
+    k_ms = time_ms(call)
+    k_dev = profiled("maxconf", call)
     p_ms = time_ms(lambda: maxconf_ref(logits))
     bnd, by = bound(b * v * 4 + b * 16, 6.0 * b * v, "fp32")
     row = {"kernel": "maxconf", "shape": [b, v], "dtype": "float32",
            "max_abs_err": max(errs.values()), "errs": errs, "atol": tols,
-           "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-           "bound_ms": bnd, "bound_by": by}
+           "kernel_ms": k_ms, **k_dev,
+           "cold_l2_copies": len(inputs) if cold else None,
+           "amax_device_ms": amax_yardstick(inputs) if cold else None,
+           "plain_ms": p_ms, "library_ms": None, "bound_ms": bnd,
+           "bound_by": by}
     log(row)
+    not_below_bound(row)
     return row
 
 
@@ -494,8 +583,8 @@ def check_rwkv6_scan(dev, b: int, t: int, h: int, m: int, dtype,
     out = torch.empty_like(s0)
     k_ms = time_ms(lambda: rk.rwkv6_scan(r, k, v, w, u, s0, out),
                    samples=21, inner=3 if t > 64 else 10)
-    dev_ms = device_ms(lambda: rk.rwkv6_scan(r, k, v, w, u, s0, out),
-                       ("rwkv6_scan_kernel",))
+    dev_ms, dev_n = device_ms(lambda: rk.rwkv6_scan(r, k, v, w, u, s0, out),
+                              ("rwkv6_scan_kernel",))
     p_ms = time_ms(lambda: rwkv6_scan_ref(r, k, v, w, u, s0), samples=21,
                    inner=1, warmup=2)
     n_tok = b * t * h
@@ -507,7 +596,8 @@ def check_rwkv6_scan(dev, b: int, t: int, h: int, m: int, dtype,
            "dtype": f"r/k/v {str(dtype).split('.')[-1]}, w/u/state float32",
            "aliased_state": aliased, "max_abs_err": err,
            "share_of_limit": used, "rtol_of_max": RWKV_TOL,
-           "kernel_ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms,
+           "kernel_ms": k_ms, "device_ms": dev_ms,
+           "device_kernels_per_call": dev_n, "plain_ms": p_ms,
            "library_ms": None, "bound_ms": bnd, "bound_by": by}
     log(row)
     not_below_bound(row)
@@ -562,10 +652,18 @@ def check_mdsa(dev, b: int, d: int, seed: int) -> dict:
     tag = f"[{b},{d}]x[{d},{d}]"
     assert got.shape == (b,) and used <= 1, \
         f"mdsa {tag} max err {err} ({used:.2f} of the limit)"
+    # the kernel's and the plain version's error against float64, on the
+    # same limit: which of the two the error against each other is
+    y64 = x.double() - mean.double()
+    want64 = torch.einsum("bd,de,be->b", y64, prec.double(), y64)
+    want64 = torch.sqrt(torch.clamp(want64, min=0.0))
+    vs64 = {name: float(((v.double() - want64).abs()
+                         / (MDSA_RTOL * want64.abs() + MDSA_RTOL)).max())
+            for name, v in (("kernel", got), ("plain", want))}
     inner = 3 if d >= 1024 else 10
     k_ms = time_ms(lambda: mk.mdsa(x, mean, prec), samples=21, inner=inner)
-    dev_ms = device_ms(lambda: mk.mdsa(x, mean, prec),
-                       ("mdsa_partial_kernel", "mdsa_finish_kernel"))
+    dev_ms, dev_n = device_ms(lambda: mk.mdsa(x, mean, prec),
+                              ("mdsa_partial_kernel", "mdsa_finish_kernel"))
     p_ms = time_ms(lambda: mdsa_ref(x, mean, prec), samples=21, inner=inner)
     y = x - mean
     lib_ms = time_ms(lambda: torch.einsum("bd,de,be->b", y, prec, y),
@@ -575,7 +673,9 @@ def check_mdsa(dev, b: int, d: int, seed: int) -> dict:
     row = {"kernel": "mdsa", "shape": [[b, d], [d, d]], "dtype": "float32",
            "allow_tf32": torch.backends.cuda.matmul.allow_tf32,
            "max_abs_err": err, "rtol": MDSA_RTOL, "atol": MDSA_RTOL,
-           "share_of_limit": used, "kernel_ms": k_ms, "device_ms": dev_ms,
+           "share_of_limit": used, "share_of_limit_vs_float64": vs64,
+           "kernel_ms": k_ms, "device_ms": dev_ms,
+           "device_kernels_per_call": dev_n,
            "plain_ms": p_ms, "library_ms": lib_ms,
            "library": "einsum bd,de,be->b on x - mu",
            "bound_ms": bnd, "bound_by": by,
@@ -598,7 +698,7 @@ def not_below_bound(row: dict) -> None:
 
 def kernel_phase(dev) -> dict:
     out = {"gate_path": check_gate(dev, 32, 8, seed=11),
-           "gate_yi6b": check_gate(dev, 32, 64000, seed=12),
+           "gate_yi6b": check_gate(dev, 32, 64000, seed=12, cold=True),
            "head_path": check_fused_head(dev, 32, 32, 8, torch.float32,
                                          seed=13),
            "head_yi6b": check_fused_head(dev, 32, 4096, 64000,
@@ -634,7 +734,7 @@ def kernel_phase(dev) -> dict:
     out["decode_long_float32"] = check_decode(dev, 8, 16384, torch.float32,
                                               seed=21)
     out["maxconf_path"] = check_maxconf(dev, GEN_ROWS, 64000, seed=22)
-    out["maxconf_152k"] = check_maxconf(dev, 32, 152064, seed=23)
+    out["maxconf_152k"] = check_maxconf(dev, 32, 152064, seed=23, cold=True)
     # rwkv6-1.6b's time mix (32 heads of 64): the generate prefill, a
     # serve window of 8 x 48, a decode step with the state in place
     out["rwkv6_prefill"] = check_rwkv6_scan(
@@ -1268,6 +1368,8 @@ def kernels_line(kern: dict, serve: dict, gen: dict, rwkv_gen: dict,
                     "max_abs_err": row["max_abs_err"],
                     "ms": row["kernel_ms"],
                     "device_ms": row.get("device_ms"),
+                    "device_kernels_per_call": row.get(
+                        "device_kernels_per_call"),
                     "plain_ms": row["plain_ms"],
                     "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
                     "library_ms": row["library_ms"], "shape": row["shape"]})

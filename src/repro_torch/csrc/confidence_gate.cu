@@ -12,20 +12,21 @@
 //
 // Design. The TPU walks the class blocks of a row tile in order on one core
 // ("arbitrary" grid axis) and carries the running statistics in VMEM
-// scratch. Blocks on the H100 run in parallel and in no order, and at B=32
-// one block per row tile would leave most of the 132 SMs idle, so the class
-// axis is split: grid = (vocab splits, rows); each block folds its slice
-// into partial statistics (gate_stats.cuh) and a second pass merges the
-// partials per row with the same algebra and applies the supervisor's
-// epilogue. The ragged class edge is masked in the kernel, so no -1e30
-// padding copy is made. The supervisor is a runtime code. Select is one
-// block doing k rounds of a block-wide argmin (first index on ties), with
-// t_local and n_valid read from device scalars so a new threshold needs no
-// new launch configuration (and a CUDA graph no recapture).
+// scratch. Here the score is the one-launch pass of vocab_stats.cuh: one
+// warp per row at the serve path's [32, 8], a thread-block cluster per row
+// for a wide vocabulary (merged through distributed shared memory), each
+// thread folding 16-byte register blocks with _fold_stats' algebra, and
+// the supervisor's epilogue in the same kernel. s2 is carried only for
+// Gini. The ragged class edge and unaligned rows are handled in the
+// kernel, so no -1e30 padding copy is made. The supervisor is a runtime
+// code. Select is one block doing k rounds of a block-wide argmin (first
+// index on ties), with t_local and n_valid read from device scalars so a
+// new threshold needs no new launch configuration (and a CUDA graph no
+// recapture).
 
 #include <climits>
 
-#include "gate_stats.cuh"
+#include "vocab_stats.cuh"
 
 namespace {
 
@@ -83,17 +84,14 @@ gate_select_kernel(const float* __restrict__ conf, int B,
 
 }  // namespace
 
-// logits [B, C] (dtype code DT_F32 / DT_BF16) -> conf [B] f32, pred [B] i32.
-// part: scratch of B * nsplit GateStats (24 bytes each).
+// logits [B, C] (dtype code DT_F32 / DT_BF16, contiguous) -> out [2, B]:
+// conf (f32), pred (i32). cluster: the wrapper's plan (blocks per row, or
+// 0 for one warp per row).
 extern "C" int gate_score(const void* logits, int dtype, int B, int C,
-                          int nsplit, int sup, void* part, void* conf,
-                          void* pred, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GateStats* p = static_cast<GateStats*>(part);
-  cudaError_t err = launch_gate_partial(logits, dtype, B, C, nsplit, p, s);
-  if (err != cudaSuccess) return err;
-  return launch_gate_finish(p, B, nsplit, sup, static_cast<float*>(conf),
-                            static_cast<int*>(pred), s);
+                          int cluster, int sup, void* out, void* stream) {
+  return launch_vocab_stats<vstats::EPI_GATE>(
+      logits, dtype, B, C, cluster, sup, out,
+      static_cast<cudaStream_t>(stream));
 }
 
 // conf [B] f32, t_local f32 scalar, n_valid i32 scalar (device) -> idx [k].

@@ -1,6 +1,7 @@
 // Online-softmax running statistics of the confidence gate, shared by the
-// gate's score kernel (confidence_gate.cu) and the fused head gate
-// (fused_head_gate.cu). Per row:
+// one-launch pass of maxconf and the gate's score (vocab_stats.cuh) and
+// the fused head gate (fused_head_gate.cu, with the merge pass below).
+// Per row:
 //   m1, a1 : max logit and its column (first index on ties) -> pred
 //   m2     : second-largest logit                           -> PCS
 //   s      : sum exp(x - m1)                                -> normaliser
@@ -102,52 +103,6 @@ __device__ __forceinline__ float gate_conf(const GateStats& st, int sup) {
     default:
       return st.s2 / (z * z);
   }
-}
-
-// First pass, with the class axis split: grid = (nsplit, rows); block
-// (split, row) folds the columns [split * chunk, (split + 1) * chunk) of
-// its row (ragged edge masked here, no padding copy) into one partial
-// GateStats at part[row * nsplit + split].
-constexpr int kGateThreads = 256;
-
-template <typename T>
-static __global__ void __launch_bounds__(kGateThreads)
-gate_partial_kernel(const T* __restrict__ logits, int C, int nsplit,
-                    GateStats* __restrict__ part) {
-  __shared__ GateStats warp_stats[kGateThreads / 32];
-  const int row = blockIdx.y;
-  const int split = blockIdx.x;
-  const int chunk = (C + nsplit - 1) / nsplit;
-  const int c0 = split * chunk;
-  const int c1 = min(C, c0 + chunk);
-  const T* x = logits + (size_t)row * C;
-
-  GateStats st = gate_empty();
-  for (int c = c0 + threadIdx.x; c < c1; c += kGateThreads)
-    gate_push(st, to_f32(x[c]), c);
-  st = gate_warp_reduce(st);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) warp_stats[warp] = st;
-  __syncthreads();
-  if (warp == 0) {
-    st = lane < kGateThreads / 32 ? warp_stats[lane] : gate_empty();
-    st = gate_warp_reduce(st);
-    if (lane == 0) part[(size_t)row * nsplit + split] = st;
-  }
-}
-
-static inline cudaError_t launch_gate_partial(const void* logits, int dtype,
-                                              int B, int C, int nsplit,
-                                              GateStats* part,
-                                              cudaStream_t stream) {
-  const dim3 grid(nsplit, B);
-  if (dtype == DT_F32)
-    gate_partial_kernel<float><<<grid, kGateThreads, 0, stream>>>(
-        static_cast<const float*>(logits), C, nsplit, part);
-  else
-    gate_partial_kernel<__nv_bfloat16><<<grid, kGateThreads, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(logits), C, nsplit, part);
-  return cudaGetLastError();
 }
 
 // merge the nsplit partial statistics of one row: one warp, lanes striding

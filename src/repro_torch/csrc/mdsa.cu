@@ -56,6 +56,13 @@
 // pass keeps ~3 decimal digits and is not used. The split rounds with
 // integer operations: cvt.rna.tf32.f32 runs at a sixteenth of the fp32
 // rate and set the pace of an earlier mma.sync version.
+//
+// Accumulation. Accumulated on the tensor cores over all 4096 of D, the
+// distances were off by 6.4% of the 1e-4 tolerance against float64 on an
+// H100 (chip_smoke.py; the fp32 plain version 0.13%). So each 32-deep
+// step's 12 products start a fresh accumulator (wgmma's scale-d 0) and
+// the steps are added on the CUDA cores, rounded to nearest: 0.28%, for
+// 64 more registers a thread and no measurable time.
 
 #include "kernel_common.cuh"
 
@@ -86,17 +93,18 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& big,
   small = __float_as_uint(v - __uint_as_float(big)) & TF32_MASK;
 }
 
-// Z[64 x 128] += A[64 x 8] B[8 x 128] in TF32: A from registers (mma's
-// m16n8k8 A fragment in each warp), B K-major from shared memory
+// Z[64 x 128] = A[64 x 8] B[8 x 128] (+ Z where scale_d is 1) in TF32: A
+// from registers (mma's m16n8k8 A fragment in each warp), B K-major from
+// shared memory
 __device__ __forceinline__ void wgmma_tf32(float* d, const uint32_t* a,
-                                           uint64_t db) {
+                                           uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // 4 floats of row `row` (of `rows`), columns col..col+3 (of D), to shared
@@ -202,9 +210,11 @@ mdsa_partial_kernel(const float* __restrict__ x, const float* __restrict__ mu,
   const int kbeg = blockIdx.z * slice_len;
   const int nk = (min(D, kbeg + slice_len) - kbeg + BK - 1) / BK;
 
-  float acc[64];
+  // acc: one step's products (the tensor cores'); tot: their sum over the
+  // steps, added on the CUDA cores
+  float acc[64], tot[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < 64; ++i) acc[i] = tot[i] = 0.f;
 
   // the whole ring in flight first
 #pragma unroll
@@ -232,9 +242,9 @@ mdsa_partial_kernel(const float* __restrict__ x, const float* __restrict__ mu,
       // 32 bytes of depth per instruction inside the swizzled atom rows
       const uint64_t db = gmma_desc(pbase + kk * 32, 16, 1024);
       const uint64_t dsm = gmma_desc(pbase + P_BYTES + kk * 32, 16, 1024);
-      wgmma_tf32(acc, as[kk], db);
-      wgmma_tf32(acc, ab[kk], dsm);
-      wgmma_tf32(acc, ab[kk], db);
+      wgmma_tf32(acc, as[kk], db, kk > 0);   // a fresh sum for each step
+      wgmma_tf32(acc, ab[kk], dsm, 1);
+      wgmma_tf32(acc, ab[kk], db, 1);
     }
     wgmma_commit();
     // while the tensor cores run step kt, split P's step kt + 1 in shared
@@ -246,6 +256,8 @@ mdsa_partial_kernel(const float* __restrict__ x, const float* __restrict__ mu,
     if (kt + 1 < nk) split_p(next, tid);
     wgmma_wait0();
     fence_regs<64>(acc);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tot[i] += acc[i];
     fence_regs<BK / 2>(&ab[0][0]);
     fence_regs<BK / 2>(&as[0][0]);
     __syncthreads();   // step kt + 1's split is visible; step kt is consumed
@@ -270,7 +282,7 @@ mdsa_partial_kernel(const float* __restrict__ x, const float* __restrict__ mu,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int col = j0 + n * 8 + 2 * t + e;
-          if (col < D) p = fmaf(acc[4 * n + 2 * h + e], xr[col] - mu[col], p);
+          if (col < D) p = fmaf(tot[4 * n + 2 * h + e], xr[col] - mu[col], p);
         }
     }
     // the 4 lanes of a row (t = 0..3) are adjacent: fixed-order tree

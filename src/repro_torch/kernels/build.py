@@ -134,11 +134,23 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(t) -> int:
     """PyTorch's current stream on ``t``'s device, for the calling thread
-    (looked up at every launch, never cached across threads)."""
+    (looked up at every launch, never cached): its raw handle, without
+    building the Stream object that ``torch.cuda.current_stream``
+    returns, host time on every launch."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def on_device(t, fn, *args):
+    """``fn(*args)`` with ``t``'s device current; the device is switched
+    only where another one is current."""
+    import torch
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(t.device):
+        return fn(*args)
 
 
 def require_cuda(t, name: str, dtypes, ndim: int) -> None:

@@ -1,13 +1,15 @@
 """ctypes wrappers of the confidence-gate CUDA kernels
 (``csrc/confidence_gate.cu``): the score pass and the thresholded
-bottom-k select. Outputs and scratch are allocated here with
-``torch.empty``; the kernels launch on PyTorch's current stream and never
-synchronise."""
+bottom-k select, and the launch plan of the vocabulary statistics pass
+that the score shares with maxconf (``csrc/vocab_stats.cuh``). Outputs
+are allocated here with ``torch.empty``; the kernels launch on PyTorch's
+current stream and never synchronise."""
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -16,8 +18,11 @@ from repro_torch.kernels import build
 SUPERVISORS = ("max_softmax", "pcs", "neg_entropy", "gini")
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 STATS_INT32S = 6                # one GateStats: 5 floats + 1 int
-SPLIT_COLS = 2048               # class columns folded by one score block
-MAX_SPLITS = 256
+SM_COUNT = 132                  # H100 SXM
+STATS_THREADS = 256             # threads per block of the statistics pass
+STATS_ROWS_PER_BLOCK = STATS_THREADS // 32   # narrow rows: a warp each
+WIDE_COLS = 4096                # from here a row gets a cluster of blocks
+MAX_CLUSTER = 8                 # the portable thread-block cluster size
 MAX_SELECT_ROWS = 12288         # select keeps conf in 48 KB of shared memory
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -26,7 +31,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return build.bind("confidence_gate", {
-        "gate_score": [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+        "gate_score": [_P, _I, _I, _I, _I, _I, _P, _P],
         "gate_select": [_P, _I, _P, _P, _I, _P, _P],
     })
 
@@ -38,31 +43,46 @@ def supervisor_code(supervisor: str) -> int:
     return SUPERVISORS.index(supervisor)
 
 
-def score_splits(c: int) -> int:
-    return max(1, min(MAX_SPLITS, -(-c // SPLIT_COLS)))
+class StatsPlan(NamedTuple):
+    """How the statistics pass launches for logits [B, C]: ``grid``
+    blocks of STATS_THREADS; with ``cluster`` > 0 each row is one
+    thread-block cluster of ``cluster`` blocks (block i folds the i-th
+    run of the row's 16-byte vectors); with ``cluster`` 0 each row is one
+    warp's, STATS_ROWS_PER_BLOCK rows to a block."""
+    cluster: int
+    grid: int
+
+
+@functools.cache
+def stats_plan(b: int, c: int, dtype: torch.dtype) -> StatsPlan:
+    """Narrow rows (C < WIDE_COLS) a warp each; a wide row a cluster of
+    as many blocks as the B rows can have with one block per SM, at most
+    MAX_CLUSTER, and no more than gives every thread one 16-byte load."""
+    if c < WIDE_COLS:
+        return StatsPlan(0, -(-b // STATS_ROWS_PER_BLOCK))
+    vec = 16 // dtype.itemsize
+    cluster = max(1, min(MAX_CLUSTER, SM_COUNT // b,
+                         c // (STATS_THREADS * vec)))
+    return StatsPlan(cluster, cluster * b)
 
 
 def gate_score(logits: torch.Tensor, supervisor: str):
     """logits [B, C] f32/bf16 (CUDA, contiguous) -> conf [B] f32,
-    pred [B] i32."""
+    pred [B] i32 (rows of one [2, B] buffer)."""
     build.require_cuda(logits, "logits", DTYPE_CODES, 2)
     b, c = logits.shape
     if b == 0 or c == 0:
         raise ValueError(f"empty logits {tuple(logits.shape)}")
     sup = supervisor_code(supervisor)
-    nsplit = score_splits(c)
-    dev = logits.device
-    part = torch.empty(b * nsplit * STATS_INT32S, dtype=torch.int32,
-                       device=dev)
-    conf = torch.empty(b, dtype=torch.float32, device=dev)
-    pred = torch.empty(b, dtype=torch.int32, device=dev)
+    out = torch.empty((2, b), dtype=torch.float32, device=logits.device)
     lib = _lib()
-    with torch.cuda.device(dev):
-        err = lib.gate_score(build.ptr(logits), DTYPE_CODES[logits.dtype], b,
-                             c, nsplit, sup, build.ptr(part), build.ptr(conf),
-                             build.ptr(pred), build.stream_of(logits))
+    err = build.on_device(logits, lib.gate_score, logits.data_ptr(),
+                          DTYPE_CODES[logits.dtype], b, c,
+                          stats_plan(b, c, logits.dtype).cluster, sup,
+                          out.data_ptr(), build.stream_of(logits))
     build.check(lib, err, "gate_score")
-    return conf, pred
+    conf, pred = out.unbind()
+    return conf, pred.view(torch.int32)
 
 
 def gate_select(conf: torch.Tensor, t_local: torch.Tensor,

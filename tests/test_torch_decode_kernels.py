@@ -15,6 +15,11 @@ oracles to 1/64 (one bf16 rounding of outputs of order 1 from f32 values
 that differ by ~1e-6); the kernel oracle against ``gqa_attention`` in
 bf16 to 3e-2, because JAX's ``_sdpa`` (and the port's copy of it) rounds
 the probabilities to bf16 before the PV product and the kernel does not.
+The CUDA maxconf's own arithmetic (the statistics pass of
+``csrc/vocab_stats.cuh``, emulated in f32 as ``tests/test_torch_kernels.py``
+emulates it for the gate) is held to the Pallas kernel at the card's
+tolerances (``chip_smoke.py``'s ``check_maxconf``): prediction exact,
+max_softmax and pcs atol 1e-5, entropy atol 2e-6 * max|logit| + 1e-5.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.maxconf.ref import maxconf_ref  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from tests.test_torch_kernels import (STATS_CASES, VEC,  # noqa: E402
+                                      stats_emulated, tied_logits)
 
 MAXCONF_KEYS = ("max_softmax", "pcs", "entropy")
 
@@ -102,6 +109,59 @@ def test_maxconf_extreme_logits():
                                    interpret=True), ent_atol=2e-6 * 1e4)
     assert np.isfinite(got["max_softmax"]).all()
     np.testing.assert_allclose(got["max_softmax"][0], 1.0, atol=1e-6)
+    assert got["prediction"].tolist() == [0, 0]
+
+
+def maxconf_emulated(x: np.ndarray, vec: int, cluster: int,
+                     head: int) -> dict:
+    """maxconf.cu's outputs from the emulated statistics pass: the
+    epilogue of vstats::epilogue."""
+    st = stats_emulated(torch.from_numpy(x), vec, cluster, head)
+    z = st["s"]
+    return {"prediction": st["a1"].numpy(), "max_softmax": (1.0 / z).numpy(),
+            "pcs": ((1.0 - torch.exp(st["m2"] - st["m1"])) / z).numpy(),
+            "entropy": (st["m1"] + torch.log(z) - st["t"] / z).numpy()}
+
+
+def check_maxconf_kernel_tols(got: dict, want: dict, x: np.ndarray) -> None:
+    np.testing.assert_array_equal(got["prediction"],
+                                  np.asarray(want["prediction"]))
+    tols = {"max_softmax": 1e-5, "pcs": 1e-5,
+            "entropy": 2e-6 * float(np.abs(x).max()) + 1e-5}
+    for k, tol in tols.items():
+        np.testing.assert_allclose(got[k], np.asarray(want[k]), rtol=0,
+                                   atol=tol, err_msg=k)
+
+
+@pytest.mark.parametrize("b,c,dtype,cluster,head", STATS_CASES)
+def test_maxconf_kernel_arithmetic_matches_jax(b, c, dtype, cluster, head):
+    """The CUDA maxconf's fold order and merges, emulated in f32, against
+    the JAX Pallas kernel (interpret mode): every planted tie (across a
+    cluster rank, inside and across register blocks, first and last
+    column) resolves to the first index, and a maximum found twice gives
+    pcs 0."""
+    x = tied_logits(b + c, b, c, VEC[dtype], cluster, head, dtype)
+    got = maxconf_emulated(x, VEC[dtype], cluster, head)
+    want = jax_maxconf(jnp.asarray(x, jnp.dtype(dtype)), force_pallas=True,
+                       interpret=True)
+    check_maxconf_kernel_tols(got, want, x)
+    np.testing.assert_array_equal(got["prediction"], np.argmax(x, 1))
+    tied = (x == x.max(1, keepdims=True)).sum(1) > 1
+    assert tied.any() or c == 1
+    assert (got["pcs"][tied] == 0).all()
+    assert (np.asarray(want["pcs"])[tied] == 0).all()
+
+
+@pytest.mark.parametrize("cluster,head", [(0, 0), (0, 3), (3, 1), (8, 0)])
+def test_maxconf_kernel_arithmetic_on_extreme_logits(cluster, head):
+    x = np.zeros((2, 4100), np.float32)
+    x[0, :3] = [1e4, -1e4, 0.0]
+    x[1, 5] = x[1, 77] = -1e4              # a row of ties at 0
+    got = maxconf_emulated(x, 4, cluster, head)
+    check_maxconf_kernel_tols(got, jax_maxconf(jnp.asarray(x),
+                                               force_pallas=True,
+                                               interpret=True), x)
+    assert np.isfinite(got["max_softmax"]).all()
     assert got["prediction"].tolist() == [0, 0]
 
 
