@@ -15,7 +15,11 @@ toolkit. In order, it
    with CUDA events, and every kernel's own device time and device
    kernels per call with torch.profiler (the wrapper's host work left
    out); maxconf at [32, 152064] and the gate's score at [32, 64000] are
-   timed over copies of their logits larger than the L2;
+   timed over copies of their logits larger than the L2; the gate's
+   select also at [4096] and [12288] (k = B and 64, ties, +-0.0, +-inf,
+   NaN and padding rows planted, exact), the fused head gate also with a
+   bf16 hidden state, and the head gate's confidence at the yi-6b head
+   against float64;
 4. checks the remote model's prefill and its decode steps on the card
    against the CPU on reduced configs (yi-6b; h2o-danube, whose
    sliding-window ring buffer wraps; rwkv6), then serves 256 requests through
@@ -172,8 +176,10 @@ def device_ms(fn, marks: tuple[str, ...],
 # measures nothing, so the count is checked and a count of 0 fails
 DEVICE_KERNELS = {
     "gate_score": (("vocab_stats_kernel",), 1),
-    "gate_select": (("gate_select_kernel",), 1),
-    "fused_head_gate": (("head_gate_kernel", "gate_finish_kernel"), 2),
+    "gate_select": (("gate_select_warp_kernel", "gate_select_sort_kernel"),
+                    1),
+    "fused_head_gate": (("head_gate_narrow_kernel", "head_gate_mma_kernel",
+                         "head_gate_fma_kernel"), 1),
     "maxconf": (("vocab_stats_kernel",), 1),
 }
 
@@ -316,7 +322,71 @@ def check_gate(dev, b: int, c: int, seed: int, cold: bool = False) -> dict:
     return {r["kernel"]: r for r in rows}
 
 
-def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int) -> dict:
+def planted_conf(rng, b: int) -> np.ndarray:
+    """Confidences in [0, 1) with the select's edge cases planted: ties
+    (a value repeated across rows), -0.0 beside +0.0, +inf, -inf and NaN
+    rows."""
+    c = rng.random(b).astype(np.float32)
+    rows = rng.permutation(b)
+    c[rows[:b // 16]] = c[rows[b // 16]]                 # ties
+    c[rows[b // 16 + 1:b // 16 + 4]] = 0.0
+    c[rows[b // 16 + 4:b // 16 + 7]] = -0.0
+    c[rows[b // 16 + 7:b // 16 + 10]] = np.inf
+    c[rows[b // 16 + 10:b // 16 + 13]] = np.nan
+    c[rows[b // 16 + 13:b // 16 + 15]] = -np.inf
+    return c
+
+
+def check_select(dev, b: int, k: int, seed: int) -> dict:
+    """gate_select at [B] (the sort form) against select_ref, exactly, on
+    planted ties, +-0.0, +-inf and NaN, with padding rows (n_valid < B)
+    and a threshold that cuts the eligible rows; library: torch.topk of
+    the masked confidences (no threshold, no promised tie order: a
+    yardstick only)."""
+    from repro_torch.kernels.confidence_gate import kernel as gk
+    from repro_torch.kernels.confidence_gate.ref import select_ref
+    rng = np.random.default_rng(seed)
+    conf = torch.from_numpy(planted_conf(rng, b)).to(dev)
+    n_valid = b - b // 10
+    nn = torch.tensor(n_valid, dtype=torch.int32, device=dev)
+    for t in (0.5, 0.0, math.inf):
+        tt = torch.tensor(t, dtype=torch.float32, device=dev)
+        got = gk.gate_select(conf, tt, nn, k)
+        want = select_ref(conf, tt, nn, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), \
+            f"gate_select [{b}] k {k} t {t}: first differences at " \
+            f"{(got != want).nonzero()[:4].flatten().tolist()}"
+    tt = torch.tensor(0.5, dtype=torch.float32, device=dev)
+    call = lambda: gk.gate_select(conf, tt, nn, k)  # noqa: E731
+    rows = torch.arange(b, device=dev)
+    masked = torch.where(rows < n_valid, conf, math.inf)
+    nbytes = b * 4 + 8 + k * 4
+    bnd, by = bound(nbytes, b * math.log2(b), "fp32")
+    row = {"kernel": "gate_select", "shape": [b], "k": k, "dtype": "float32",
+           "max_abs_err": 0.0, "kernel_ms": time_ms(call), **profiled(
+               "gate_select", call),
+           "plain_ms": time_ms(lambda: select_ref(conf, tt, nn, k)),
+           "library_ms": time_ms(lambda: torch.topk(masked, k,
+                                                    largest=False)),
+           "library": "torch.topk(masked, k, largest=False)",
+           "bound_ms": bnd, "bound_by": by}
+    log(row)
+    not_below_bound(row)
+    return row
+
+
+def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int,
+                     h_dtype=torch.float32) -> dict:
+    """The fused head gate at [B, D] x [D, C] against its plain version
+    (conf rtol 1e-4 / atol 1e-6, pred and idx exact), and conf's error
+    against a float64 computation on the same inputs for the kernel and
+    the plain version, as a share of that limit (bounded by it). Bound:
+    bytes, or the operations of the kernel's form (bf16 w: three bf16
+    tensor-core products for an f32 hidden, one for bf16; f32 w: fp32),
+    with the fp32 CUDA-core figure beside it; library (bf16 w): one
+    cuBLAS addmm of the bf16 hidden, w and bias, a byte yardstick (not
+    the same function)."""
     from repro_torch.kernels.fused_head_gate import kernel as fk
     from repro_torch.kernels.fused_head_gate import ops as fops
     from repro_torch.kernels.fused_head_gate.ref import (fused_head_gate_ref,
@@ -326,6 +396,8 @@ def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int) -> dict:
     for s in range(seed, seed + 20):
         rng = np.random.default_rng(s)
         h = rng.standard_normal((b, d)).astype(np.float32)
+        if h_dtype == torch.bfloat16:
+            h = torch.from_numpy(h).bfloat16().float().numpy()
         w = (rng.standard_normal((d, c), dtype=np.float32)
              / np.float32(math.sqrt(d)))
         if c > 64:
@@ -335,7 +407,7 @@ def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int) -> dict:
             w[:, cols] += (h / (h * h).sum(1, keepdims=True)
                            * m[:, None]).T.astype(np.float32)
         bias = (0.1 * rng.standard_normal(c)).astype(np.float32)
-        hd_, wd_ = torch.from_numpy(h).to(dev), \
+        hd_, wd_ = torch.from_numpy(h).to(dev).to(h_dtype), \
             torch.from_numpy(w).to(dev).to(w_dtype)
         bd_ = torch.from_numpy(bias).to(dev)
         del w
@@ -353,29 +425,54 @@ def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int) -> dict:
     want = fused_head_gate_ref(hd_, wd_, bd_, t, n_valid)
     torch.cuda.synchronize()
     err = float((got["conf"] - want["conf"]).abs().max())
-    tag = f"[{b},{d}]x[{d},{c}] {w_dtype}"
+    tag = f"[{b},{d}]x[{d},{c}] {h_dtype} x {w_dtype}"
     assert torch.allclose(got["conf"], want["conf"], rtol=1e-4, atol=1e-6), \
         f"fused head conf {tag} max err {err}"
     assert torch.equal(got["pred"], want["pred"]), f"fused head pred {tag}"
     assert torch.equal(got["idx"], want["idx"]), f"fused head idx {tag}"
+    # conf against float64 on the same inputs, as a share of the limit
+    logits64 = hd_.double() @ wd_.double() + bd_.double()
+    conf64 = torch.softmax(logits64, -1).max(-1).values
+    del logits64
+    vs64 = {name: float(((v.double() - conf64).abs()
+                         / (1e-4 * conf64.abs() + 1e-6)).max())
+            for name, v in (("kernel", got["conf"]), ("plain", want["conf"]))}
+    assert vs64["kernel"] <= 1, f"fused head {tag}: conf vs float64 " \
+        f"{vs64['kernel']:.3f} of rtol 1e-4 / atol 1e-6"
+
     def head():
         return fk.fused_head_gate(hd_, wd_, bd_, "max_softmax")
 
     k_ms = time_ms(head, samples=21, inner=3)
     head_dev = profiled("fused_head_gate", head)
+
     def plain():
         logits = head_logits(hd_, wd_, bd_)
         return max_softmax(logits), logits.argmax(-1).int()
 
     p_ms = time_ms(plain, samples=21, inner=3)
-    wbytes = wd_.element_size()
-    bnd, by = bound(b * d * 4 + d * c * wbytes + c * 4 + b * 8,
-                    2.0 * b * d * c, "fp32")
+    lib_ms = None
+    if w_dtype == torch.bfloat16:
+        hb, bb = hd_.bfloat16(), bd_.bfloat16()
+        lib_ms = time_ms(lambda: torch.addmm(bb, hb, wd_), samples=21,
+                         inner=3)
+    nbytes = (b * d * hd_.element_size() + d * c * wd_.element_size()
+              + c * 4 + b * 8)
+    flops = 2.0 * b * d * c
+    pieces = 1 if h_dtype == torch.bfloat16 else 3
+    bnd, by = (bound(nbytes, pieces * flops, "bf16")
+               if w_dtype == torch.bfloat16 else bound(nbytes, flops, "fp32"))
     row = {"kernel": "fused_head_gate", "shape": [[b, d], [d, c]],
-           "dtype": f"hidden float32, w {str(w_dtype).split('.')[-1]}",
-           "max_abs_err": err, "kernel_ms": k_ms, **head_dev,
-           "plain_ms": p_ms, "library_ms": None, "bound_ms": bnd,
-           "bound_by": by}
+           "dtype": f"hidden {str(h_dtype).split('.')[-1]}, "
+                    f"w {str(w_dtype).split('.')[-1]}",
+           "form": fk.head_plan(b, d, c, hd_.dtype, wd_.dtype,
+                                wd_.data_ptr() % 16 == 0).form,
+           "max_abs_err": err, "share_of_limit_vs_float64": vs64,
+           "kernel_ms": k_ms, **head_dev,
+           "plain_ms": p_ms, "library_ms": lib_ms,
+           "library": "addmm(bias, hidden, w) in bf16" if lib_ms else None,
+           "bound_ms": bnd, "bound_by": by,
+           "bound_fp32_cuda_core_ms": bound(nbytes, flops, "fp32")[0]}
     log(row)
     not_below_bound(row)
     return row
@@ -702,7 +799,14 @@ def kernel_phase(dev) -> dict:
            "head_path": check_fused_head(dev, 32, 32, 8, torch.float32,
                                          seed=13),
            "head_yi6b": check_fused_head(dev, 32, 4096, 64000,
-                                         torch.bfloat16, seed=14)}
+                                         torch.bfloat16, seed=14),
+           "head_yi6b_bf16_hidden": check_fused_head(
+               dev, 32, 4096, 64000, torch.bfloat16, seed=14,
+               h_dtype=torch.bfloat16)}
+    # the select's sort form at B = 4096 and 12288, k = B and 64
+    for b in (4096, 12288):
+        for k in (b, 64):
+            out[f"select_{b}_k{k}"] = check_select(dev, b, k, seed=b + k)
     # 8 x 48: one transport window of escalations (max_in_flight 8) at
     # the task's 48 tokens, as the serve path sends it; 10 x 48: a whole
     # batch's escalations (ceil(0.3 * 32)); 8 x 512: the generate path's

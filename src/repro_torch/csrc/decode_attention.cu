@@ -406,14 +406,11 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
                          float scale, int smem, cudaStream_t s) {
   constexpr int bytes = smem_bytes<T, HD, GP>();
   if (smem != bytes) return cudaErrorInvalidValue;  // plan mismatch
-  static bool attr_set = false;  // above 48 KB needs the opt-in, once
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel<T, HD, GP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static bool smem_set[kMaxDevices] = {};
+  const cudaError_t err = allow_dynamic_smem(
+      smem_set, reinterpret_cast<const void*>(decode_split_kernel<T, HD, GP>),
+      bytes);
+  if (err != cudaSuccess) return err;
   decode_split_kernel<T, HD, GP><<<dim3(nsplit, B * KH), kThreads, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), kv_len, part_o, part_ml, S, H, KH, chunk,

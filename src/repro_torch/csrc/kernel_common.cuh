@@ -113,6 +113,22 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Above 48 KB of dynamic shared memory a launch needs an opt-in, which
+// is an attribute of the kernel on one device: set it on the current
+// device the first time, flagging it in done[] (one array per kernel).
+constexpr int kMaxDevices = 64;
+inline cudaError_t allow_dynamic_smem(bool (&done)[kMaxDevices],
+                                      const void* kernel, int bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < kMaxDevices && done[dev])) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
 extern "C" const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

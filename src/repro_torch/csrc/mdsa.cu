@@ -308,14 +308,11 @@ template <bool VEC>
 cudaError_t launch_partial(dim3 grid, const float* x, const float* mu,
                            const float* P, float* part, int B, int D,
                            int slice_len, cudaStream_t s) {
-  static bool attr_set = false;  // above 48 KB needs the opt-in, once
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        mdsa_partial_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static bool smem_set[kMaxDevices] = {};
+  const cudaError_t err = allow_dynamic_smem(
+      smem_set, reinterpret_cast<const void*>(mdsa_partial_kernel<VEC>),
+      SMEM_BYTES);
+  if (err != cudaSuccess) return err;
   mdsa_partial_kernel<VEC><<<grid, kThreads, SMEM_BYTES, s>>>(
       x, mu, P, part, B, D, slice_len);
   return cudaGetLastError();

@@ -2,7 +2,8 @@
 // second max, sum exp, sum exp * x and, for Gini only, sum exp^2) over
 // each row of a logits matrix [B, C], and the epilogue of maxconf or of
 // the confidence gate's score: one launch per call, no global scratch.
-// Used by maxconf.cu and confidence_gate.cu (gate_score).
+// Used by maxconf.cu and confidence_gate.cu (gate_score); its fold and
+// merge also by fused_head_gate.cu.
 //
 // Replaces, with those two files, the statistics pass of
 //   src/repro/kernels/maxconf/kernel.py: _kernel (pallas_call at :93)
@@ -41,7 +42,7 @@
 //   - narrow rows (the serve path's C = 8): one warp per row, eight rows
 //     per block, no cluster.
 // Merges run in a fixed order (lanes by a shuffle tree, warps by warp 0,
-// ranks in order), and keep gate_merge's explicit first-index tie rule;
+// ranks in order), and keep merge's explicit first-index tie rule;
 // a maximum found twice leaves m2 == m1, so PCS is 0 there as in
 // _fold_stats. Only Gini reads s2: it is carried only where the gate
 // scores Gini (template S2).
@@ -100,8 +101,9 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// b merged into a: gate_merge's algebra and tie rule, with one exp (the
-// side with the larger max keeps its scale, exactly 1)
+// b merged into a: _fold_stats' rescaling algebra and a first-index tie
+// rule, with one exp (the side with the larger max keeps its scale,
+// exactly 1)
 template <bool S2>
 __device__ __forceinline__ void merge(GateStats& a, const GateStats& b) {
   const bool a_hi = a.m1 >= b.m1;

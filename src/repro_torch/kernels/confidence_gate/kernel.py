@@ -1,9 +1,11 @@
 """ctypes wrappers of the confidence-gate CUDA kernels
 (``csrc/confidence_gate.cu``): the score pass and the thresholded
-bottom-k select, and the launch plan of the vocabulary statistics pass
-that the score shares with maxconf (``csrc/vocab_stats.cuh``). Outputs
-are allocated here with ``torch.empty``; the kernels launch on PyTorch's
-current stream and never synchronise."""
+bottom-k select (a rank select in one pass: one warp at B <= 32, a
+merge sort of (value, row) keys in shared memory above), and the launch
+plan of the vocabulary statistics pass that the score shares with maxconf
+(``csrc/vocab_stats.cuh``). Each call allocates its one output buffer
+with ``torch.empty``; the kernels launch on PyTorch's current stream and
+never synchronise."""
 
 from __future__ import annotations
 
@@ -23,7 +25,10 @@ STATS_THREADS = 256             # threads per block of the statistics pass
 STATS_ROWS_PER_BLOCK = STATS_THREADS // 32   # narrow rows: a warp each
 WIDE_COLS = 4096                # from here a row gets a cluster of blocks
 MAX_CLUSTER = 8                 # the portable thread-block cluster size
-MAX_SELECT_ROWS = 12288         # select keeps conf in 48 KB of shared memory
+# the select's sort keeps an 8-byte key per row (rows padded to a power
+# of two, one 8-byte gap per 16) in shared memory: 16384 rows fill 136 KB
+# of the 227 KB a block has
+MAX_SELECT_ROWS = 16384
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -100,9 +105,8 @@ def gate_select(conf: torch.Tensor, t_local: torch.Tensor,
                          f"got k={k}, B={b}")
     idx = torch.empty(k, dtype=torch.int32, device=conf.device)
     lib = _lib()
-    with torch.cuda.device(conf.device):
-        err = lib.gate_select(build.ptr(conf), b, build.ptr(t_local),
-                              build.ptr(n_valid), k, build.ptr(idx),
-                              build.stream_of(conf))
+    err = build.on_device(conf, lib.gate_select, conf.data_ptr(), b,
+                          t_local.data_ptr(), n_valid.data_ptr(), k,
+                          idx.data_ptr(), build.stream_of(conf))
     build.check(lib, err, "gate_select")
     return idx

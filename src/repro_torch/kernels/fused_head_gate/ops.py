@@ -1,7 +1,8 @@
 """Public wrapper of the fused local-head -> gate op.
 
 A CPU tensor goes to the plain version (``ref.py``); a CUDA tensor
-launches the fused CUDA kernel and the gate's select kernel, or raises.
+launches the fused CUDA kernel (one device kernel) and the gate's select
+kernel, or raises.
 ``LAUNCHES`` counts the fused kernel's launches (the select launch counts
 under ``confidence_gate.ops.LAUNCHES``).
 
@@ -25,6 +26,18 @@ from repro_torch.kernels.fused_head_gate.ref import (fused_head_gate_ref,
                                                      head_logits)
 
 LAUNCHES = {"fused_head_gate": 0}
+_ZERO_BIAS: dict = {}       # (C, device) -> zeros [C] f32, made once
+
+
+def _zero_bias(c: int, device: torch.device) -> torch.Tensor:
+    """The kernel's bias for ``bias=None``: a zero vector kept per (C,
+    device) rather than made on every call (nothing writes it)."""
+    key = (c, device)
+    zero = _ZERO_BIAS.get(key)
+    if zero is None:
+        zero = _ZERO_BIAS[key] = torch.zeros(c, dtype=torch.float32,
+                                             device=device)
+    return zero
 
 
 @dataclass(frozen=True)
@@ -63,8 +76,10 @@ def fused_head_gate(hidden: torch.Tensor, w: torch.Tensor,
         raise ValueError("the fused head gate scores the softmax family "
                          "only; pass a callable supervisor to "
                          "confidence_gate on the materialised logits")
-    bias = (torch.zeros(w.shape[1], dtype=torch.float32, device=w.device)
-            if bias is None else bias.float().contiguous())
+    if bias is None:
+        bias = _zero_bias(w.shape[1], w.device)
+    elif bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.float().contiguous()
     conf, pred = kernel.fused_head_gate(hidden, w, bias, supervisor)
     count_launch(LAUNCHES, "fused_head_gate")
     return {"conf": conf, "pred": pred,

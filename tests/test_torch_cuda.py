@@ -5,7 +5,9 @@ decides at run time). On the card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: pred and idx exact (inputs are checked for gaps first);
-conf rtol 1e-4 / atol 1e-6 (fp32 online softmax summed in another order);
+conf rtol 1e-4 / atol 1e-6 (fp32 online softmax summed in another
+order; the head gate's tensor-core form against float64 within a tenth
+of that limit at the yi-6b head); the select exact;
 attention f32 atol 1e-4 against the plain version run in f32 on the same
 inputs; bf16 prefill atol 2e-2 (one bf16 rounding of outputs of order 1,
 and the tensor-core kernel's rounding of P to bf16 before P V),
@@ -42,8 +44,12 @@ from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.confidence_gate.ref import select_ref  # noqa: E402
+from repro_torch.kernels.fused_head_gate import \
+    kernel as fused_head_kernel  # noqa: E402
 from repro_torch.kernels.fused_head_gate.ops import fused_head_gate  # noqa: E402
-from repro_torch.kernels.fused_head_gate.ref import fused_head_gate_ref  # noqa: E402
+from repro_torch.kernels.fused_head_gate.ref import (  # noqa: E402
+    fused_head_gate_ref, head_logits)
 from repro_torch.kernels.maxconf import kernel as maxconf_kernel  # noqa: E402
 from repro_torch.kernels.maxconf.ops import maxconf  # noqa: E402
 from repro_torch.kernels.maxconf.ref import maxconf_ref  # noqa: E402
@@ -129,19 +135,195 @@ def test_gate_kernel_matches_plain(dev, sup, b, c, dtype, offset):
     assert after["gate_select"] == before["gate_select"] + 1
 
 
-@pytest.mark.parametrize("b,d,c,wdt", [(8, 32, 8, torch.float32),
-                                       (40, 96, 700, torch.bfloat16),
-                                       (32, 4096, 8000, torch.bfloat16)])
-def test_fused_head_kernel_matches_plain(dev, b, d, c, wdt):
+def head_inputs(dev, b, d, c, wdt, hdt=torch.float32, offset=0):
+    """h [B, D] (hdt), w [D, C] (wdt; with ``offset`` > 0 starting that
+    many elements into a buffer, rows not 16-byte aligned), bias [C]."""
     rng = np.random.default_rng(b * d + c)
     h = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32))
-    w = torch.from_numpy((rng.standard_normal((d, c)) * 3
-                          / np.sqrt(d)).astype(np.float32))
+    w = (rng.standard_normal((d, c)) * 3 / np.sqrt(d)).astype(np.float32)
     bias = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
-    h, w, bias = h.to(dev), w.to(dev).to(wdt), bias.to(dev)
+    return h.to(dev).to(hdt), on_card(w, dev, wdt, offset), bias.to(dev)
+
+
+# (b, d, c, w dtype): the serve path's narrow form, the tensor-core form
+# with ragged C (a block and a cluster partly filled) and D not a
+# multiple of the MMA's 16 (or of the ring's 32), more than 32 rows (two
+# row groups), the FMA tile (f32 w; bf16 w with C % 8 != 0)
+@pytest.mark.parametrize("b,d,c,wdt", [(8, 32, 8, torch.float32),
+                                       (40, 96, 700, torch.bfloat16),
+                                       (32, 4096, 8000, torch.bfloat16),
+                                       (32, 4100, 8008, torch.bfloat16),
+                                       (33, 100, 4104, torch.bfloat16),
+                                       (70, 1000, 5000, torch.float32),
+                                       (5, 300, 4099, torch.bfloat16),
+                                       (32, 24, 1032, torch.bfloat16)])
+def test_fused_head_kernel_matches_plain(dev, b, d, c, wdt):
+    h, w, bias = head_inputs(dev, b, d, c, wdt)
     t = gapped(fused_head_gate_ref(h, w, bias)["conf"], b, gap=1e-6)
     check_gate_out(fused_head_gate(h, w, bias, t, b - 1),
                    fused_head_gate_ref(h, w, bias, t, b - 1))
+
+
+@pytest.mark.parametrize("b,d,c", [(32, 4096, 8000), (33, 100, 4104),
+                                   (8, 32, 8)])
+def test_fused_head_kernel_bf16_hidden(dev, b, d, c):
+    """A bf16 hidden state: one bf16 piece on the tensor cores."""
+    h, w, bias = head_inputs(dev, b, d, c, torch.bfloat16, torch.bfloat16)
+    t = gapped(fused_head_gate_ref(h, w, bias)["conf"], b, gap=1e-6)
+    check_gate_out(fused_head_gate(h, w, bias, t, b - 1),
+                   fused_head_gate_ref(h, w, bias, t, b - 1))
+
+
+@pytest.mark.parametrize("sup", SUPERVISORS)
+def test_fused_head_kernel_every_supervisor(dev, sup):
+    h, w, bias = head_inputs(dev, 32, 512, 4096, torch.bfloat16)
+    t = gapped(fused_head_gate_ref(h, w, bias, supervisor=sup)["conf"], 32,
+               gap=1e-6)
+    check_gate_out(fused_head_gate(h, w, bias, t, 31, supervisor=sup),
+                   fused_head_gate_ref(h, w, bias, t, 31, supervisor=sup))
+
+
+def test_fused_head_kernel_unaligned_w_takes_the_fma_tile(dev):
+    """bf16 w whose rows start off 16 bytes cannot feed the tensor-core
+    form's 16-byte copies: the plan takes the FMA tile."""
+    h, w, bias = head_inputs(dev, 16, 512, 4096, torch.bfloat16, offset=1)
+    assert fused_head_kernel.head_plan(16, 512, 4096, h.dtype, w.dtype,
+                                      False).form \
+        == "fma"
+    t = gapped(fused_head_gate_ref(h, w, bias)["conf"], 16, gap=1e-6)
+    check_gate_out(fused_head_gate(h, w, bias, t, 15),
+                   fused_head_gate_ref(h, w, bias, t, 15))
+
+
+@pytest.mark.parametrize("b,d,c,wdt", [(32, 32, 8, torch.float32),
+                                       (32, 4096, 8000, torch.bfloat16),
+                                       (70, 1000, 5000, torch.float32)])
+def test_fused_head_gate_runs_one_kernel_and_allocates_scratch_once(
+        dev, b, d, c, wdt):
+    """Each call runs one device kernel (narrow, tensor-core or FMA form)
+    and makes one allocation, its [2, B] output; the wide forms' merge
+    scratch is made on the first call only, and the kernel leaves its
+    tickets zero."""
+    from torch.profiler import ProfilerActivity, profile
+    h, w, bias = head_inputs(dev, b, d, c, wdt)
+    call = lambda: fused_head_kernel.fused_head_gate(h, w, bias,  # noqa: E731
+                                                     "max_softmax")
+    first = call()
+    torch.cuda.synchronize()
+    stats = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    again = call()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] \
+        == stats + 1
+    for a, b_ in zip(first, again):         # deterministic merge order
+        assert torch.equal(a, b_)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and e.count]
+    assert round(sum(e.count for e in kern) / 10) == 1
+    assert all("head_gate_" in e.key for e in kern)
+    plan = fused_head_kernel.head_plan(b, d, c, h.dtype, wdt)
+    if plan.form != "narrow":
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = fused_head_kernel._SCRATCH[
+            (h.device.index, stream,
+             fused_head_kernel._ticket_ints(plan.groups))]
+        assert int(scratch[:plan.groups].abs().sum()) == 0
+
+
+def test_fused_head_kernel_plans_with_other_ticket_regions_on_one_stream(
+        dev):
+    """One row group ([32, 4096] x [4096, 64000]: tickets in int32s 0-7,
+    partials from 8), then nine (B = 288, C = 1000: tickets 0-15, a
+    smaller scratch) on the same stream, and again: each plan's tickets
+    start zero, so every row is merged once and right."""
+    big = head_inputs(dev, 32, 4096, 64000, torch.bfloat16)
+    small = head_inputs(dev, 288, 256, 1000, torch.bfloat16)
+    for h, w, bias in (big, small, big, small):
+        conf, pred = fused_head_kernel.fused_head_gate(h, w, bias,
+                                                       "max_softmax")
+        want = fused_head_gate_ref(h, w, bias)
+        torch.cuda.synchronize()
+        assert torch.allclose(conf, want["conf"], rtol=1e-4, atol=1e-6)
+        assert torch.equal(pred, want["pred"])
+
+
+def test_fused_head_kernel_error_against_float64(dev):
+    """At the yi-6b head ([32, 4096] x [4096, 64000], w bf16, hidden f32)
+    conf's error against a float64 computation on the same inputs stays
+    within a tenth of rtol 1e-4 / atol 1e-6 (three exact bf16 pieces on
+    the tensor cores, each 16-deep step summed on the CUDA cores), as
+    close as the fp32 plain version's."""
+    from repro_torch.core.supervisors import max_softmax
+    h, w, bias = head_inputs(dev, 32, 4096, 64000, torch.bfloat16)
+    conf, pred = fused_head_kernel.fused_head_gate(h, w, bias, "max_softmax")
+    logits64 = h.double() @ w.double() + bias.double()
+    want = torch.softmax(logits64, -1).max(-1).values
+    used = ((conf.double() - want).abs() / (1e-4 * want + 1e-6)).max()
+    plain = ((max_softmax(head_logits(h, w, bias)).double() - want).abs()
+             / (1e-4 * want + 1e-6)).max()
+    assert used <= 0.1, f"{float(used):.4f} of the limit"
+    assert used <= 2 * plain + 0.01
+    assert torch.equal(pred, logits64.argmax(-1).int())
+
+
+# (b, k): the warp form (B <= 32) and the sort form, one warp up to the
+# largest B; k = 1, k = min(64, B) and k = B
+SELECT_SHAPES = [1, 2, 31, 32, 33, 1000, 4096, 12288, 16384]
+
+
+def planted_conf(b: int, seed: int) -> np.ndarray:
+    """Confidences with ties, -0.0 beside +0.0, +-inf and NaN planted."""
+    rng = np.random.default_rng(seed)
+    c = rng.random(b).astype(np.float32)
+    if b >= 16:
+        rows = rng.permutation(b)
+        c[rows[:max(2, b // 16)]] = c[rows[-1]]
+        for n, v in enumerate((0.0, -0.0, np.inf, -np.inf, np.nan)):
+            c[rows[b // 16 + 2 * n:b // 16 + 2 * n + 2]] = v
+    return c
+
+
+@pytest.mark.parametrize("b", SELECT_SHAPES)
+def test_select_kernel_matches_plain(dev, b):
+    """The rank select, exactly against select_ref: thresholds at +inf,
+    in the middle, at 0.0 (the zeros are not below it) and NaN (nothing
+    taken), padding rows past n_valid, k below and at B."""
+    conf = torch.from_numpy(planted_conf(b, b)).to(dev)
+    for k in sorted({1, min(64, b), b}):
+        for t in (float("inf"), 0.5, 0.0, float("nan"),
+                  float(conf[b // 2])):
+            for n in sorted({b, b - b // 10, 0}):
+                tt = torch.tensor(t, dtype=torch.float32, device=dev)
+                nn = torch.tensor(n, dtype=torch.int32, device=dev)
+                got = gate_kernel.gate_select(conf, tt, nn, k)
+                want = select_ref(conf, tt, nn, k)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (k, t, n)
+
+
+def test_select_kernel_one_launch_and_limits(dev):
+    conf = torch.zeros(gate_kernel.MAX_SELECT_ROWS + 1, device=dev)
+    tt = torch.tensor(0.5, device=dev)
+    nn = torch.tensor(3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="B <="):
+        gate_kernel.gate_select(conf, tt, nn, 4)
+    with pytest.raises(ValueError, match="1 <= k"):
+        gate_kernel.gate_select(conf[:8], tt, nn, 9)
+    from torch.profiler import ProfilerActivity, profile
+    for b in (32, 4096):
+        c = torch.from_numpy(planted_conf(b, 1)).to(dev)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                gate_kernel.gate_select(c, tt, nn, b)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA") and e.count]
+        assert round(sum(e.count for e in kern) / 10) == 1
+        assert all("gate_select_" in e.key for e in kern)
 
 
 @pytest.mark.parametrize("b,t,h,kh,hd,causal,window,dtype", [
