@@ -41,7 +41,16 @@ toolkit. In order, it
    as the remote tier (the RWKV6 scan kernel once per layer per remote
    window) and generates 32 tokens for 8 prompts of 512 tokens with it,
    with the checks of steps 4 and 5;
-8. prints one ``{"kernels": [...]}`` line and, last, one
+8. frees rwkv6, then holds the train path (``loss_fn``, every gradient
+   leaf, the in-place AdamW step, a checkpoint round trip) on the card
+   against the CPU on reduced yi-6b, h2o-danube (T = 128 past its window
+   of 64) and rwkv6 in fp32 (``train_parity``); trains yi-6b at full
+   width through ``repro_torch.launch.train``'s own functions (batch 8 x
+   128, remat): a gradient for every leaf, 6 steps of its batch stream
+   and 6 of one fixed batch whose loss must fall, no kernel launched,
+   step time, tokens/s, MFU and peak memory (``train``); and the same
+   for rwkv6-1.6b at full width, 2 + 4 steps (``train_rwkv6``);
+9. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line. Full results are also
@@ -95,6 +104,13 @@ MDSA_RTOL = 1e-4       # fp32 quadratic forms summed in another order
 # (at most 2^-8 relative), and atol for the fp32 sums; the limit shrinks
 # with the output, which a softmax over a long cache makes small
 DECODE_TOL = {torch.bfloat16: (2.0 ** -8, 1e-3), torch.float32: (0.0, 1e-4)}
+# the train path, card vs CPU in fp32 (the CPU tests' tolerances against
+# JAX): loss rtol 1e-5; a gradient leaf within GRAD_TOL * max|g| + 1e-7
+# (rwkv6's leaves that feed r and k amplify the matmuls' fp32 rounding
+# about 1e4-fold, tests/test_torch_train.py); an AdamW step from the same
+# gradients within 1e-6 (params) and rtol 1e-5 (moments)
+GRAD_TOL = {"yi-6b": 1e-4, "h2o-danube-1.8b": 1e-4, RWKV_ARCH: 2e-3}
+TRAIN_SEQ = 128       # launcher defaults: batch 8 x 128 tokens, remat
 RESULTS: dict = {"phases": {}}
 
 
@@ -1422,6 +1438,206 @@ def supervisor_phase(dev) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# train phases
+# ----------------------------------------------------------------------------
+
+def train_parity_phase(dev) -> list[dict]:
+    """Reduced yi-6b, h2o-danube (T = 128: its window of 64 masks) and
+    rwkv6, fp32: ``loss_fn`` and every gradient leaf on the card against
+    the CPU on the same weights and tokens; one in-place AdamW step on the
+    card against the functional one (bit for bit) and against the CPU's
+    from the same gradients; a checkpoint of (params, opt_state) saved
+    and loaded on the card, bit for bit. No kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    from repro_torch.train import checkpoint as ck
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    rows = []
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    for arch in ("yi-6b", "h2o-danube-1.8b", RWKV_ARCH):
+        cfg = get_config(arch).reduced()
+        params = T.init_params(cfg, torch.Generator("cpu").manual_seed(11))
+        gparams = tree_map(lambda a: a.to(dev), params)
+        toks = np.random.default_rng(31).integers(
+            1, cfg.vocab_size, (2, TRAIN_SEQ)).astype(np.int32)
+        reset_launch_counts()
+        loss_c, met_c, g_c = value_and_grad(cfg, params, {"tokens": toks})
+        loss_g, met_g, g_g = value_and_grad(cfg, gparams, {"tokens": toks})
+        torch.cuda.synchronize()
+        launched = sum(launch_counts().values())
+        assert launched == 0, f"{arch}: the train path launched kernels"
+        loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+        assert loss_rel <= 1e-5, f"{arch}: loss card vs cpu {loss_rel}"
+        grad_used = 0.0
+        for a, b in zip(tree_leaves(g_g), tree_leaves(g_c)):
+            lim = GRAD_TOL[arch] * float(b.abs().max()) + 1e-7
+            grad_used = max(grad_used,
+                            float((a.cpu() - b).abs().max()) / lim)
+        assert grad_used <= 1, f"{arch}: gradients {grad_used} of the limit"
+        # one AdamW step from the CPU's gradients on both devices
+        g_cg = tree_map(lambda a: a.to(dev), g_c)
+        cp, cs, _ = opt.adamw_update(ocfg, params, g_c,
+                                     opt.init_opt_state(params))
+        fp, fs, _ = opt.adamw_update(ocfg, gparams, g_cg,
+                                     opt.init_opt_state(gparams))
+        istate = opt.init_opt_state(gparams)
+        opt.adamw_step_(ocfg, gparams, g_cg, istate)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((gparams, istate["m"], istate["v"])),
+            tree_leaves((fp, fs["m"], fs["v"])))), \
+            f"{arch}: in-place and functional AdamW differ on the card"
+        step_err = max(float((a.cpu() - b).abs().max())
+                       for a, b in zip(tree_leaves(fp), tree_leaves(cp)))
+        mom_used = max(float(((a.cpu() - b).abs()
+                              / (1e-5 * b.abs() + 1e-12)).max())
+                       for a, b in zip(tree_leaves((fs["m"], fs["v"])),
+                                       tree_leaves((cs["m"], cs["v"]))))
+        assert step_err <= 1e-6 and mom_used <= 1, \
+            f"{arch}: AdamW step card vs cpu {step_err}, moments {mom_used}"
+        path = ROOT / "build" / f"train_parity_{arch}.msgpack"
+        ck.save_checkpoint(str(path), (gparams, istate), step=1)
+        (lp, ls), step = ck.load_checkpoint(
+            str(path), (gparams, opt.init_opt_state(gparams)))
+        path.unlink()
+        exact = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves((lp, ls["m"], ls["v"])),
+            tree_leaves((gparams, istate["m"], istate["v"]))))
+        assert exact and step == 1 and ls["step"] == 1, \
+            f"{arch}: checkpoint round trip not exact"
+        row = {"phase": "train_parity", "config": cfg.name,
+               "tokens": list(toks.shape),
+               "window": cfg.sliding_window or None,
+               "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+               "loss_rel_err": loss_rel,
+               "acc_card": float(met_g["acc"]), "acc_cpu": float(met_c["acc"]),
+               "grad_leaves": len(tree_leaves(g_g)),
+               "grad_share_of_limit": grad_used, "grad_tol": GRAD_TOL[arch],
+               "adamw_inplace_equals_functional": True,
+               "adamw_step_max_abs_err": step_err,
+               "adamw_moments_share_of_limit": mom_used,
+               "checkpoint_round_trip_exact": exact, "kernel_launches": 0}
+        log(row)
+        rows.append(row)
+    return rows
+
+
+def train_phase(dev, arch: str, stream_steps: int, fixed_steps: int,
+                phase: str) -> dict:
+    """``arch`` at full width through ``repro_torch.launch.train``'s own
+    functions, with the launcher's defaults (batch 8 x 128, remat, its
+    lr and schedule for this many steps): one gradient for every leaf,
+    checked finite; ``stream_steps`` steps of ``make_batches``, then
+    ``fixed_steps`` of one fixed batch, whose loss must fall. No kernel
+    may launch. Reports the median step time after the first step,
+    tokens/s, MFU (6 N tokens / step time / the bf16 peak) and peak
+    memory."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.optimizer import adamw_step_
+    from repro_torch.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = stream_steps + fixed_steps
+    args = train.parse_args(["--arch", arch, "--steps", str(steps)])
+    t0 = time.perf_counter()
+    cfg, params, opt_state, step_fn = train.setup(args)
+    torch.cuda.synchronize(dev)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    static_gib = torch.cuda.memory_allocated(dev) / 2**30
+    batches = train.make_batches(cfg, args.batch, args.seq)
+    reset_launch_counts()
+    # every leaf's gradient, once, on the stream's first batch
+    first = train.to_device(next(batches), dev)
+    _, _, grads = value_and_grad(cfg, params, first)
+    leaves = tree_leaves(grads)
+    n_leaves = len(tree_leaves(params))
+    assert len(leaves) == n_leaves and all(g is not None for g in leaves)
+    # 64 M elements at a time: isfinite's temporaries of a whole stacked
+    # leaf would add ~5 GiB to the peak this phase reports
+    finite = all(bool(torch.isfinite(c).all()) for g in leaves
+                 for c in g.view(-1).split(1 << 26))
+    assert finite, f"{arch}: a non-finite gradient"
+    del grads, leaves
+    history, step_s = [], []
+    batch = first
+    for i in range(steps):
+        if 0 < i <= stream_steps:   # the last one stays: the fixed batch
+            batch = train.to_device(next(batches), dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in metrics.items()}
+        history.append(m)
+        print(train.log_line(i + 1, m, step_s[-1]), flush=True)
+    counts = launch_counts()
+    assert sum(counts.values()) == 0, f"{arch}: kernels launched: {counts}"
+    losses = [m["loss"] for m in history]
+    assert all(math.isfinite(x) for x in losses), f"{arch}: {losses}"
+    assert all(math.isfinite(m["grad_norm"]) for m in history)
+    fixed_losses = losses[stream_steps:]
+    assert fixed_losses[-1] < fixed_losses[0], \
+        f"{arch}: the fixed batch's loss did not fall: {fixed_losses}"
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    card_gib = torch.cuda.get_device_properties(dev).total_memory / 2**30
+    assert peak_gib < card_gib
+    med = statistics.median(step_s[1:])
+    # where a step goes: its two halves timed apart (the gradient:
+    # forward, recompute, backward; the AdamW step), then one whole step
+    # under the profiler (device busy share, top kernels)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    _, _, grads = value_and_grad(cfg, params, batch)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter()
+    grad_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    torch.cuda.reset_peak_memory_stats(dev)
+    adamw_step_(train.opt_config(args), params, grads, opt_state)
+    torch.cuda.synchronize(dev)
+    grad_s, opt_s = t1 - t0, time.perf_counter() - t1
+    opt_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del grads
+    profile = device_profile(lambda: (step_fn(params, opt_state, batch),
+                                      torch.cuda.synchronize(dev)))
+    tokens = args.batch * args.seq
+    out = {"phase": phase, "config": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "params": n_params,
+           "batch": args.batch, "seq": args.seq, "remat": True,
+           "lr": args.lr, "steps": steps, "stream_steps": stream_steps,
+           "fixed_batch_steps": fixed_steps, "setup_s": setup_s,
+           "grad_leaves": n_leaves, "grads_finite": finite,
+           "step_s_median": med, "step_s": step_s, "grad_s": grad_s,
+           "optimizer_s": opt_s,
+           "tokens_per_s": tokens / med,
+           "mfu": 6.0 * n_params * tokens / med / PEAK_FLOPS["bf16"],
+           "static_gib": static_gib,
+           "peak_mem_gib": peak_gib, "card_mem_gib": card_gib,
+           "grad_peak_gib": grad_peak, "optimizer_peak_gib": opt_peak,
+           "loss": losses, "ln_vocab": math.log(cfg.vocab_size),
+           "grad_norm": [m["grad_norm"] for m in history],
+           "lr_schedule": [m["lr"] for m in history],
+           "kernel_launches": 0}
+    log(out)
+    out["step_profile"] = prof_row = {"phase": f"{phase}_step_profile",
+                                      "config": cfg.name, **profile}
+    log(prof_row)
+    del params, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------------
 
 SOURCES = {
     "gate_score": ("src/repro_torch/csrc/confidence_gate.cu",
@@ -1524,6 +1740,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases["serve_rwkv6"], stack = rwkv_serve_phase(dev)
     phases["generate_rwkv6"] = rwkv_gen = generate_phase(dev, stack)
+    # free rwkv6: the train phases measure their own peak memory
+    del stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["train_parity"] = train_parity_phase(dev)
+    phases["train"] = train_phase(dev, "yi-6b", 6, 6, "train")
+    phases["train_rwkv6"] = train_phase(dev, RWKV_ARCH, 2, 4, "train_rwkv6")
     line = kernels_line(kern, serve, gen, rwkv_gen, sup)
     RESULTS["kernels"] = line["kernels"]
     out = ROOT / "build"

@@ -32,6 +32,19 @@ _libs: dict[str, ctypes.CDLL] = {}
 LAUNCH_LOCK = threading.Lock()
 
 
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through kernel ``name``:
+    a kernel's output has no ``grad_fn``, so without this check a
+    gradient would stop at the launch without a word. Serving runs under
+    ``torch.no_grad()``; training runs the plain functions."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            f"torch.no_grad() or on tensors that do not require grad")
+
+
 def count_launch(counter: dict, name: str) -> None:
     """Add one launch of kernel ``name`` to ``counter``."""
     with LAUNCH_LOCK:

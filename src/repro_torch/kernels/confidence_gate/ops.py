@@ -16,7 +16,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import count_launch, refuse_grad
 from repro_torch.kernels.confidence_gate import kernel
 from repro_torch.kernels.confidence_gate.ref import confidence_gate_ref
 
@@ -37,6 +37,7 @@ def device_scalar(x, default, dtype: torch.dtype,
 
 def select(conf: torch.Tensor, t_local, n_valid, k: int) -> torch.Tensor:
     """Select kernel launch (CUDA conf) with its count."""
+    refuse_grad("gate_select", conf)
     t = device_scalar(t_local, math.inf, torch.float32, conf.device)
     n = device_scalar(n_valid, conf.shape[0], torch.int32, conf.device)
     idx = kernel.gate_select(conf, t, n, k)
@@ -63,6 +64,7 @@ def confidence_gate(logits: torch.Tensor, t_local=None, n_valid=None, *,
     if callable(supervisor):
         raise ValueError("the gate kernel scores the softmax family only; "
                          "a callable supervisor runs on CPU tensors")
+    refuse_grad("gate_score", logits)
     conf, pred = kernel.gate_score(logits, supervisor)
     count_launch(LAUNCHES, "gate_score")
     return {"conf": conf, "pred": pred,

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import count_launch, refuse_grad
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -24,6 +24,7 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     [B, H, hd]."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, kv_len)
+    refuse_grad("decode_attention", q, k_cache, v_cache)
     out = kernel.decode_attention(q, k_cache, v_cache, kv_len)
     count_launch(LAUNCHES, "decode_attention")
     return out

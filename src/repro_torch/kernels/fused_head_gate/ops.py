@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import count_launch, refuse_grad
 from repro_torch.kernels.confidence_gate.ops import select
 from repro_torch.kernels.fused_head_gate import kernel
 from repro_torch.kernels.fused_head_gate.ref import (fused_head_gate_ref,
@@ -76,6 +76,7 @@ def fused_head_gate(hidden: torch.Tensor, w: torch.Tensor,
         raise ValueError("the fused head gate scores the softmax family "
                          "only; pass a callable supervisor to "
                          "confidence_gate on the materialised logits")
+    refuse_grad("fused_head_gate", hidden, w, bias)
     if bias is None:
         bias = _zero_bias(w.shape[1], w.device)
     elif bias.dtype != torch.float32 or not bias.is_contiguous():

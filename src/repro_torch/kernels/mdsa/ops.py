@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import count_launch, refuse_grad
 from repro_torch.kernels.mdsa import kernel
 from repro_torch.kernels.mdsa.ref import mdsa_ref
 
@@ -20,6 +20,7 @@ def mdsa_distance(x: torch.Tensor, mean: torch.Tensor,
     """x: [B, D], mean: [D], prec: [D, D] -> Mahalanobis distance [B]."""
     if x.device.type == "cpu":
         return mdsa_ref(x, mean, prec)
+    refuse_grad("mdsa", x, mean, prec)
     out = kernel.mdsa(x, mean, prec)
     count_launch(LAUNCHES, "mdsa")
     return out

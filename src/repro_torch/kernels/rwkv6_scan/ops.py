@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.build import count_launch
+from repro_torch.kernels.build import count_launch, refuse_grad
 from repro_torch.kernels.rwkv6_scan import kernel
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
@@ -28,6 +28,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if s_out is None:
             return y, s_t
         return y, s_out.copy_(s_t)
+    refuse_grad("rwkv6_scan", r, k, v, w, u, s0)
     out = kernel.rwkv6_scan(r, k, v, w, u, s0, s_out)
     count_launch(LAUNCHES, "rwkv6_scan")
     return out

@@ -55,7 +55,7 @@ from repro_torch.runtime import (calibrate, content_key, content_keys,
                                  to_host)
 from repro_torch.serving import Request, ServeConfig
 from repro_torch.serving.engine import CostModel
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_like, tree_map
 from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
                                          init_opt_state)
 
@@ -74,8 +74,7 @@ def train_surrogate(cfg, toks, labels, steps=60, lr=3e-3, seed=0,
     for _ in range(steps):
         leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
         loss, _ = S.loss_fn(cfg, params, toks, labels, drop)
-        it = iter(torch.autograd.grad(loss, leaves))
-        grads = tree_map(lambda _p: next(it), params)
+        grads = tree_like(params, torch.autograd.grad(loss, leaves))
         params, opt, _ = adamw_update(
             ocfg, tree_map(torch.Tensor.detach, params), grads, opt)
     return params, float(loss.detach())

@@ -10,10 +10,12 @@ back; rope rotates the two HALVES of the head dim (not interleaved
 pairs); the plain ``gqa_attention`` keeps logits and softmax in fp32 even
 for bf16 inputs (JAX's ``preferred_element_type=f32``), rounds the
 probabilities to the value dtype before the PV product, and accumulates
-that product in fp32. Full-sequence attention in ``attn_forward`` /
-``attn_prefill`` goes through ``kernels.flash_attention`` and one-token
-attention over the cache in ``attn_decode`` through
-``kernels.decode_attention`` (the Hopper kernels for a CUDA tensor).
+that product in fp32. ``attn_forward``, the train path's attention,
+computes what JAX's does through the plain ``gqa_attention`` (under
+autograd); the serving path's prefill attention in ``attn_prefill`` goes
+through ``kernels.flash_attention`` and one-token attention over the
+cache in ``attn_decode`` through ``kernels.decode_attention`` (the Hopper
+kernels for a CUDA tensor, which have no backward).
 """
 
 from __future__ import annotations
@@ -192,10 +194,11 @@ def _qkv(cfg: ModelConfig, p: Params, x, positions):
 
 def attn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool) -> torch.Tensor:
-    """Full-sequence attention (train / prefill / encoder)."""
+    """Full-sequence attention (train / encoder), differentiable: the
+    plain ``gqa_attention``, as ``repro.models.layers.attn_forward``."""
     b, t, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    out = attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    out = gqa_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return dense(p["wo"], out.reshape(b, t, -1))
 
 

@@ -10,8 +10,11 @@ the squared-ReLU token-shift MLP.
 
 Same parameter tree as ``repro.models.rwkv6`` (nested ``maa``,
 ``maa_lora`` and ``decay_lora`` dicts; dense weights ``[d_in, d_out]``).
-The recurrence goes through ``kernels.rwkv6_scan`` (the Hopper kernel for
-a CUDA tensor) where JAX runs the jnp scan ``_time_mix_core``.
+On the serving path (``prefill``, ``decode_step``) the recurrence goes
+through ``kernels.rwkv6_scan`` (the Hopper kernel for a CUDA tensor, state
+updated in place); on the train path (``time_mix(...,
+differentiable=True)``) through the scan's plain version, the per-token
+loop of JAX's jnp ``_time_mix_core`` in fp32, under autograd.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models.layers import Params, dense, dense_params, group_norm
 
 LORA_R = 32
@@ -102,10 +106,17 @@ def rwkv6_state(cfg: ModelConfig, batch: int, layers: int | None = None, *,
 
 
 def time_mix(cfg: ModelConfig, p: Params, x, s0, x_prev0,
-             s_out: torch.Tensor | None = None):
+             s_out: torch.Tensor | None = None, *,
+             differentiable: bool = False):
     """x: [B,T,D] normed. s0: [B,H,M,M] fp32. x_prev0: [B,D] last token
     of the previous chunk (zeros at t=0). Returns (out [B,T,D], s_T,
-    x_last). ``s_out`` (may be ``s0``) receives s_T in place."""
+    x_last). ``s_out`` (may be ``s0``) receives s_T in place.
+    ``differentiable`` runs the recurrence as plain PyTorch that autograd
+    follows (JAX's ``_time_mix_core``), not the scan kernel; it takes no
+    ``s_out``."""
+    if differentiable and s_out is not None:
+        raise ValueError("the differentiable recurrence writes no state "
+                         "in place")
     b, t, d = x.shape
     m = cfg.rwkv_head_dim
     h = d // m
@@ -118,7 +129,10 @@ def time_mix(cfg: ModelConfig, p: Params, x, s0, x_prev0,
              + _lora_apply(p["decay_lora"], mixed["w"]).float())
     w = torch.exp(-torch.exp(decay)).reshape(b, t, h, m)
     u = p["bonus_u"].float().reshape(h, m)
-    y, s_t = rwkv6_scan(r, k, v, w, u, s0, s_out)
+    if differentiable:
+        y, s_t = rwkv6_scan_ref(r, k, v, w, u, s0)
+    else:
+        y, s_t = rwkv6_scan(r, k, v, w, u, s0, s_out)
     y = group_norm(y.reshape(b, t, d).to(x.dtype), p["ln_w"], p["ln_b"], h,
                    cfg.norm_eps)
     out = dense(p["wo"], y * g)

@@ -339,6 +339,7 @@ def make_gated_local_step(local_apply: Callable, supervisor="max_softmax"):
     """
     fused = isinstance(local_apply, FusedLocalHead)
 
+    @torch.no_grad()
     def step(local_batch, t_local, n_valid):
         if fused:
             h = local_apply.trunk(local_batch)

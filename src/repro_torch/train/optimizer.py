@@ -1,9 +1,14 @@
 """AdamW with global-norm clipping and warmup + cosine schedule, in
 PyTorch (same update as ``repro.train.optimizer``).
 
-Functional, like the JAX version: ``adamw_update`` returns new parameter
-and state trees (the inputs are not modified). Moments are fp32; the
-step count is a Python int, so the schedule is host arithmetic.
+``adamw_step_`` updates parameters and moments in place, the counterpart
+of the buffer donation JAX's train step jits with: it goes a chunk of
+rows at a time (a layer slice of a stacked ``[L, ...]`` leaf), so no fp32
+copy of a whole leaf is ever made. ``adamw_update`` is the functional
+form, like the JAX version: it returns new parameter and state trees and
+leaves its inputs as they are (it runs ``adamw_step_`` on copies, so the
+two agree bit for bit). Moments are fp32; the step count is a Python int,
+so the schedule is host arithmetic.
 """
 
 from __future__ import annotations
@@ -48,42 +53,63 @@ def init_opt_state(params: Any) -> dict:
             "step": 0}
 
 
+CHUNK = 1 << 25     # elements a step works on at once (128 MiB in fp32)
+
+
+def _chunks(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Views of ``t`` in runs of whole rows along dim 0, each of at most
+    ``CHUNK`` elements or one row: a layer slice at a time for yi-6b's
+    stacked weights."""
+    if t.dim() == 0:
+        return (t,)
+    return t.split(max(1, CHUNK // max(1, math.prod(t.shape[1:]))))
+
+
 def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+    """sqrt of the sum of every leaf's squares, in fp32, a chunk at a
+    time."""
+    return torch.sqrt(sum(torch.sum(torch.square(c.float()))
+                          for x in tree_leaves(tree) for c in _chunks(x)))
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
-                 state: dict) -> tuple[Any, dict, dict]:
-    """Returns (new_params, new_state, stats)."""
+def adamw_step_(cfg: AdamWConfig, params: Any, grads: Any,
+                state: dict) -> dict:
+    """One AdamW step in place: ``params`` and ``state`` (``m``, ``v``
+    and ``step``) are updated, ``grads`` only read. Returns the stats
+    {"grad_norm" (0-d tensor), "lr"}."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step
     b2c = 1 - cfg.b2 ** step
+    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
+                          tree_leaves(state["m"]), tree_leaves(state["v"])):
+        decay = p.dim() >= 2      # decay matrices only (norms/bias exempt)
+        for pc, gc, mc, vc in zip(_chunks(p), _chunks(g), _chunks(m),
+                                  _chunks(v)):
+            gc = gc.float() * scale
+            mc.mul_(cfg.b1).add_(gc, alpha=1 - cfg.b1)
+            vc.mul_(cfg.b2).addcmul_(gc, gc, value=1 - cfg.b2)
+            delta = torch.div(mc, b1c).div_(
+                torch.div(vc, b2c).sqrt_().add_(cfg.eps))
+            p32 = pc.float()      # pc itself when the leaf is fp32
+            if decay:
+                delta.add_(p32, alpha=cfg.weight_decay)
+            pc.copy_(p32.sub_(delta, alpha=lr))
+    state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}
 
-    def upd(p, g, m, v):
-        g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if p.dim() >= 2:  # decay matrices only (norms/bias exempt)
-            delta = delta + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
 
-    out = tree_map(upd, params, grads, state["m"], state["v"])
-    stats = {"grad_norm": gnorm, "lr": lr}
-    return (_unzip(out, 0),
-            {"m": _unzip(out, 1), "v": _unzip(out, 2), "step": step}, stats)
-
-
-def _unzip(tree: Any, i: int) -> Any:
-    """Element ``i`` of every ``(p, m, v)`` leaf of ``tree`` (parameter
-    trees hold dicts and lists only, so a tuple here is a leaf)."""
-    if isinstance(tree, dict):
-        return {k: _unzip(v, i) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_unzip(v, i) for v in tree]
-    return tree[i]
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any,
+                 state: dict) -> tuple[Any, dict, dict]:
+    """Returns (new_params, new_state, stats); the inputs are not
+    modified."""
+    with torch.no_grad():
+        new_p = tree_map(torch.clone, params)
+        new_state = {"m": tree_map(torch.clone, state["m"]),
+                     "v": tree_map(torch.clone, state["v"]),
+                     "step": state["step"]}
+    stats = adamw_step_(cfg, new_p, grads, new_state)
+    return new_p, new_state, stats

@@ -1,4 +1,4 @@
-"""Carry a JAX parameter pytree into the port.
+"""Carry a JAX parameter pytree, and an optimizer state, into the port.
 
 ``params_from_jax`` takes the JAX params as numpy arrays
 (``jax.tree.map(np.asarray, params)`` on the caller's side) and returns the
@@ -10,6 +10,11 @@ then compute the same function on the same weights.
 dtype, which ``torch.from_numpy`` refuses; those leaves go through their
 16-bit pattern (``view(np.uint16)`` → ``view(torch.bfloat16)``), which is
 exact.
+
+``opt_state_from_jax`` carries the state of ``repro.train.optimizer``
+(``{"m", "v", "step"}``, fp32 moments and an int32 step) the same way,
+with the step as the Python int the port's optimizer counts with, so a
+JAX ``(params, opt_state)`` pair trains on in the port.
 """
 
 from __future__ import annotations
@@ -41,3 +46,12 @@ def params_from_jax(tree: Any, device: str | torch.device = "cuda",
     ``dtype`` (if given) recasts the floating-point leaves."""
     dev = resolve_device(device)
     return tree_map(lambda a: _leaf_to_torch(a, dev, dtype), tree)
+
+
+def opt_state_from_jax(state: Any, device: str | torch.device = "cuda"
+                       ) -> dict:
+    """Numpy AdamW state {"m", "v", "step"} -> the port's, on
+    ``device``."""
+    return {"m": params_from_jax(state["m"], device),
+            "v": params_from_jax(state["v"], device),
+            "step": int(np.asarray(state["step"]))}

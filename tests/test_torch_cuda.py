@@ -25,6 +25,11 @@ products summed in another order), and against float64 within a
 hundredth of that limit at [256, 4096] (the kernel adds each depth step's
 tensor-core sums on the CUDA cores; summed on the tensor cores over all
 of D, the error was 6.4% of it on an H100).
+The train path (plain functions, no kernel) on the card against the CPU
+on reduced models in fp32: loss rtol 1e-5, every gradient leaf within
+``tol * max|g| + 1e-7`` (1e-4 for yi-6b; 2e-3 for rwkv6, whose leaves
+that feed r and k amplify the matmuls' fp32 rounding about 1e4-fold, as
+``tests/test_torch_train.py`` measures against JAX).
 TF32 is switched off so the plain versions compute in full fp32, as the
 kernels do.
 """
@@ -38,7 +43,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.confidence_gate import kernel as gate_kernel  # noqa: E402
-from repro_torch.kernels.confidence_gate.ops import confidence_gate  # noqa: E402
+from repro_torch.kernels.confidence_gate.ops import confidence_gate, select  # noqa: E402
 from repro_torch.kernels.confidence_gate.ref import confidence_gate_ref  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref  # noqa: E402
@@ -797,3 +802,77 @@ def test_new_wrappers_raise_on_what_kernels_do_not_take(dev):
         mdsa_distance(x, mean, prec.t())
     with pytest.raises(ValueError, match="shapes"):
         mdsa_distance(x, mean[:8].contiguous(), prec)
+
+
+# ------------------------------------------------------------ train path
+
+def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(dev):
+    """A kernel has no backward: with grad mode on, a CUDA input that
+    requires grad raises (the kernel's output would cut the graph without
+    a word); under no_grad the same call launches."""
+    rng = np.random.default_rng(40)
+
+    def grad_input(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).requires_grad_()
+
+    logits, conf = grad_input(4, 8), grad_input(8)
+    hidden, w = grad_input(4, 32), grad_input(32, 8)
+    q = grad_input(1, 16, 4, 64)
+    dq, kc = grad_input(2, 8, 128), grad_input(2, 16, 2, 128)
+    lens = torch.full((2,), 16, dtype=torch.int32, device=dev)
+    x, mean, prec = mdsa_inputs(dev, 4, 16, seed=0)
+    r, k, v, wd, u, s0 = scan_inputs(dev, 2, 4, 2, 64, torch.float32, seed=0)
+    calls = {
+        "gate_score": lambda: confidence_gate(logits),
+        "gate_select": lambda: select(conf, None, None, 4),
+        "fused_head_gate": lambda: fused_head_gate(hidden, w),
+        "flash_attention": lambda: attention(q, q, q),
+        "decode_attention": lambda: decode_attn(dq, kc, kc, lens),
+        "maxconf": lambda: maxconf(logits),
+        "mdsa": lambda: mdsa_distance(x.requires_grad_(), mean, prec),
+        "rwkv6_scan": lambda: rwkv6_scan(r.requires_grad_(), k, v, wd, u,
+                                         s0),
+    }
+    before = launch_counts()
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel "
+                                               f"has no backward"):
+            call()
+    assert launch_counts() == before
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[n] > before[n] for n in calls)
+
+
+@pytest.mark.parametrize("arch,tol", [("yi-6b", 1e-4), ("rwkv6-1.6b", 2e-3)])
+def test_reduced_train_step_on_the_card(dev, arch, tol):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import make_train_step, value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(arch).reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(2))
+    gparams = tree_map(lambda a: a.to(dev), params)
+    toks = np.random.default_rng(41).integers(1, cfg.vocab_size, (2, 64))
+    before = launch_counts()
+    lc, _, gc_ = value_and_grad(cfg, params, {"tokens": toks})
+    lg, _, gg = value_and_grad(cfg, gparams, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert launch_counts() == before
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-5)
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc_)):
+        assert a.is_cuda and bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(
+            a.cpu().numpy(), b.numpy(), rtol=0,
+            atol=tol * float(b.abs().max()) + 1e-7)
+    state = opt.init_opt_state(gparams)
+    step = make_train_step(cfg, opt.AdamWConfig(lr=1e-3, warmup_steps=1))
+    _, _, metrics = step(gparams, state, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert state["step"] == 1 and np.isfinite(float(metrics["loss"]))
+    assert launch_counts() == before
