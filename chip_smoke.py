@@ -9,20 +9,25 @@ toolkit. In order, it
 2. builds every hand-written kernel from ``src/repro_torch/csrc``;
 3. holds each kernel against its plain PyTorch version on the card, at the
    serving and generate paths' shapes and at yi-6b's and rwkv6-1.6b's
-   widths (and a 16384-token cache for decode attention, and MDSA at
-   [256, 4096] x [4096, 4096]), and times kernel, plain version and
-   (where one PyTorch call computes the same function) the library call
-   with CUDA events, and every kernel's own device time and device
-   kernels per call with torch.profiler (the wrapper's host work left
-   out); maxconf at [32, 152064] and the gate's score at [32, 64000] are
-   timed over copies of their logits larger than the L2; the gate's
-   select also at [4096] and [12288] (k = B and 64, ties, +-0.0, +-inf,
-   NaN and padding rows planted, exact), the fused head gate also with a
-   bf16 hidden state, and the head gate's confidence at the yi-6b head
-   against float64;
+   widths (and a 16384-token cache for decode attention, and MDSA at [256,
+   4096] x [4096, 4096]), the attention kernels also at h2o-danube-1.8b's
+   hd 80 (flash at [1, 4608] past a window of 4096; decode over its
+   4096-slot ring) and qwen2-7b's group of 7, and times kernel, plain
+   version and (where one PyTorch call computes the same function) the
+   library call with CUDA events, and every kernel's own device time and
+   device kernels per call with torch.profiler (the wrapper's host work
+   left out); maxconf at [32, 152064] and the gate's score at [32, 64000]
+   are timed over copies of their logits larger than the L2; the gate's
+   select also at [4096] and [12288] (k = B and 64, ties, +-0.0, +-inf, NaN
+   and padding rows planted, exact), the fused head gate also with a bf16
+   hidden state, and the head gate's confidence at the yi-6b head against
+   float64;
 4. checks the remote model's prefill and its decode steps on the card
-   against the CPU on reduced configs (yi-6b; h2o-danube, whose
-   sliding-window ring buffer wraps; rwkv6), then serves 256 requests through
+   against the CPU on reduced configs of every family the port runs
+   (yi-6b; qwen2-7b's QKV bias; deepseek-67b; h2o-danube, whose
+   sliding-window ring buffer wraps, at hd 64 and widened to hd 80;
+   deepseek-v2-lite's MLA and MoE after a dense layer; qwen3-moe's GQA
+   and MoE; rwkv6), then serves 256 requests through
    ``repro_torch.launch.serve`` with yi-6b at full width as the remote
    tier, and 64 more through an engine whose local tier is a
    ``FusedLocalHead`` over the same surrogate, asserting that every
@@ -40,16 +45,22 @@ toolkit. In order, it
 7. frees yi-6b, then serves 256 requests with rwkv6-1.6b at full width
    as the remote tier (the RWKV6 scan kernel once per layer per remote
    window) and generates 32 tokens for 8 prompts of 512 tokens with it,
-   with the checks of steps 4 and 5;
-8. frees rwkv6, then holds the train path (``loss_fn``, every gradient
-   leaf, the in-place AdamW step, a checkpoint round trip) on the card
-   against the CPU on reduced yi-6b, h2o-danube (T = 128 past its window
-   of 64) and rwkv6 in fp32 (``train_parity``); trains yi-6b at full
+   with the checks of steps 4 and 5; then the same, one model at a time,
+   each freed before the next, with qwen2-7b (flash attention once per
+   layer per window, a group of 7), h2o-danube-1.8b (hd 80 through both
+   attention kernels; also 32 tokens for 1 prompt of 4608, past its
+   window of 4096: the prefill's rolled ring and decode over it) and
+   deepseek-v2-lite-16b (MLA and MoE in plain PyTorch: no attention
+   kernel launches);
+8. frees the last of them, then holds the train path (``loss_fn``, every
+   gradient leaf, the in-place AdamW step, a checkpoint round trip) on the
+   card against the CPU on reduced yi-6b, h2o-danube (T = 128 past its
+   window of 64) and rwkv6 in fp32 (``train_parity``); trains yi-6b at full
    width through ``repro_torch.launch.train``'s own functions (batch 8 x
-   128, remat): a gradient for every leaf, 6 steps of its batch stream
-   and 6 of one fixed batch whose loss must fall, no kernel launched,
-   step time, tokens/s, MFU and peak memory (``train``); and the same
-   for rwkv6-1.6b at full width, 2 + 4 steps (``train_rwkv6``);
+   128, remat): a gradient for every leaf, 6 steps of its batch stream and
+   6 of one fixed batch whose loss must fall, no kernel launched, step
+   time, tokens/s, MFU and peak memory (``train``); and the same for
+   rwkv6-1.6b at full width, 2 + 4 steps (``train_rwkv6``);
 9. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
@@ -59,6 +70,7 @@ written to ``build/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -82,17 +94,30 @@ SERVE_ARGV = ["--requests", "256", "--batch", "32", "--remote-budget", "0.3"]
 FUSED_REQUESTS = 64
 CONF_TOL = 1e-4        # the gate kernels' confidence tolerance (conf <= 1)
 GEN_ROWS, GEN_PROMPT, GEN_TOKENS = 8, 512, 32   # the generate phase
-# The decode and prefill paths round their bf16 activations at different
-# places: their logits may differ by at most this (2.5x the largest
-# difference measured on an H100, 0.10), and a decoded token is checked
-# against a fresh prefill wherever that prefill's top-2 gap exceeds it
-GEN_LOGIT_TOL = 0.25
-# the same rule for rwkv6-1.6b, whose largest difference on an H100 was
-# 0.227. Its prefill top-2 gaps are smaller (median 0.16, 90th
-# percentile 0.5), so only ~8% of its tokens clear 0.6: the floor on how
-# many are checked is a 32nd of them (an 8th for yi-6b)
-RWKV_GEN_LOGIT_TOL = 0.6
 RWKV_ARCH = "rwkv6-1.6b"
+# the other archs served and generated at full width, one at a time
+FULL_WIDTH_ARCHS = ("qwen2-7b", "h2o-danube-1.8b", "deepseek-v2-lite-16b")
+LONG_PROMPT = 4608     # h2o-danube's 1-row generate, past its 4096 window
+# The decode and prefill paths round their bf16 activations at different
+# places: their logits may differ by at most GEN_LOGIT_TOL[arch] (2.5x
+# the largest difference measured on an H100: yi-6b 0.10, rwkv6-1.6b
+# 0.227, qwen2-7b and h2o-danube-1.8b 0.094), and a decoded token is
+# checked against a fresh prefill wherever that prefill's top-2 gap
+# exceeds DECISIVE_GAP[arch] (the tolerance itself where none is given).
+# rwkv6's prefill top-2 gaps are smaller (median 0.16, 90th percentile
+# 0.5), so only ~8% of its tokens clear 0.6: the floor on how many are
+# checked is a 32nd of them (an 8th for the others).
+# deepseek-v2-lite routes each token to 6 of its 64 experts, and those
+# rounding differences change that choice between decode and prefill
+# (``moe_route_flips`` counts the (step, layer, row)s): its logits differ
+# by up to 1.10 (median 0.29 over the steps and rows, measured on an
+# H100). Its tokens are checked where the prefill's top-2 gap exceeds
+# 0.5 (25 of 256 measured, all agreeing), with a floor of a 16th
+GEN_LOGIT_TOL = {"yi-6b": 0.25, RWKV_ARCH: 0.6, "qwen2-7b": 0.25,
+                 "h2o-danube-1.8b": 0.25, "deepseek-v2-lite-16b": 2.75}
+DECISIVE_GAP = {"deepseek-v2-lite-16b": 0.5}
+CHECKED_FLOOR = {RWKV_ARCH: 32, "deepseek-v2-lite-16b": 16}
+HD80 = "h2o-danube-1.8b@hd80"   # reduced h2o-danube widened to hd 80
 # the RWKV6 scan against its plain version in f32 on the same inputs:
 # |got - want| <= RWKV_TOL * max|want| + 1e-5 (fp32 sums of M products in
 # another order and FMA contraction in the state update, a few ulp per
@@ -511,7 +536,7 @@ def check_flash(dev, b: int, t: int, dtype, seed: int, window: int = 0,
     torch.cuda.synchronize()
     err = float((got.float() - want).abs().max())
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    tag = f"[{b},{t},{h},{hd}] {dtype} window={window}"
+    tag = f"[{b},{t},{h}/{kh},{hd}] {dtype} window={window}"
     assert got.dtype == dtype and got.shape == q.shape, tag
     assert err <= atol, f"flash attention {tag} max err {err} > {atol}"
     k_ms = time_ms(lambda: ak.flash_attention(q, k, v, causal=True,
@@ -522,11 +547,17 @@ def check_flash(dev, b: int, t: int, dtype, seed: int, window: int = 0,
         ("flash_wgmma_kernel", "flash_prefill_kernel"))
     p_ms = time_ms(lambda: attention_ref(q, k, v, causal=True, window=window),
                    samples=21, inner=3)
-    lib_ms = None
-    if not window:
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), samples=21, inner=3)
+    # yardstick: SDPA over the [B, H, T, hd] views; under a window with
+    # a boolean mask of the visible (query, key) pairs
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    mask = None
+    if window:
+        pos = torch.arange(t, device=dev)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=not window, enable_gqa=True),
+        samples=21, inner=3)
     # visible (query, key) pairs under the causal / window mask
     tq = np.arange(t)
     lo = np.maximum(0, tq - window + 1) if window else np.zeros(t, int)
@@ -853,6 +884,34 @@ def kernel_phase(dev) -> dict:
     # f32 at the same length: twice the bytes through the CUDA-core scores
     out["decode_long_float32"] = check_decode(dev, 8, 16384, torch.float32,
                                               seed=21)
+    # h2o-danube-1.8b's shapes, hd 80 (32 heads over 8): a serve window,
+    # the generate prefill, the 1 x 4608 prompt past its window of 4096;
+    # decode over 544 slots and over the full 4096-slot ring at B = 1
+    h2o = {"h": 32, "kh": 8, "hd": 80}
+    for b, t, window, dt in ((8, 48, 4096, torch.bfloat16),
+                             (GEN_ROWS, GEN_PROMPT, 4096, torch.bfloat16),
+                             (1, LONG_PROMPT, 4096, torch.bfloat16),
+                             (8, 48, 4096, torch.float32),
+                             (2, 300, 64, torch.float32)):
+        key = f"flash_h2o_{b}x{t}_w{window}_{str(dt).split('.')[-1]}"
+        out[key] = check_flash(dev, b, t, dt, seed=t, window=window, **h2o)
+    for dt in (torch.bfloat16, torch.float32):
+        out[f"decode_h2o_path_{str(dt).split('.')[-1]}"] = check_decode(
+            dev, GEN_ROWS, s_path, dt, seed=32, lens=[s_path - 1] * GEN_ROWS,
+            **h2o)
+    out["decode_h2o_ring4096"] = check_decode(dev, 1, 4096, torch.bfloat16,
+                                              seed=33, **h2o)
+    # qwen2-7b's group of 7 (28 heads over 4) at hd 128
+    qwen = {"h": 28, "kh": 4, "hd": 128}
+    for b, t, dt in ((8, 48, torch.bfloat16),
+                     (GEN_ROWS, GEN_PROMPT, torch.bfloat16),
+                     (10, 48, torch.float32)):
+        out[f"flash_qwen2_{b}x{t}_{str(dt).split('.')[-1]}"] = check_flash(
+            dev, b, t, dt, seed=t + 7, **qwen)
+    for dt in (torch.bfloat16, torch.float32):
+        out[f"decode_qwen2_path_{str(dt).split('.')[-1]}"] = check_decode(
+            dev, GEN_ROWS, s_path, dt, seed=34, lens=[s_path - 1] * GEN_ROWS,
+            **qwen)
     out["maxconf_path"] = check_maxconf(dev, GEN_ROWS, 64000, seed=22)
     out["maxconf_152k"] = check_maxconf(dev, 32, 152064, seed=23, cold=True)
     # rwkv6-1.6b's time mix (32 heads of 64): the generate prefill, a
@@ -885,15 +944,34 @@ def cache_err(card: dict, cpu: dict) -> float:
                for g, c in zip(tree_leaves(card), tree_leaves(cpu)))
 
 
-def model_phase(dev) -> list[dict]:
-    """Reduced yi-6b and rwkv6 prefill: the card (kernels) against the CPU
-    (plain versions) on the same weights and tokens."""
+# the reduced configs the model phases hold card against CPU: each
+# family of the port (GQA; QKV bias; a group of 4 at hd 80 under a
+# window; MLA + MoE after a dense layer; GQA + MoE; RWKV6)
+REDUCED_ARCHS = ("yi-6b", "qwen2-7b", "deepseek-67b", HD80,
+                 "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", RWKV_ARCH)
+
+
+def reduced_config(arch: str):
+    """``arch``'s reduced config; HD80 is reduced h2o-danube widened to
+    d_model 320 over 4 heads of 80 (2 KV heads), its window 64."""
+    import dataclasses
+
     from repro_torch.configs import get_config
+    cfg = get_config(arch.split("@")[0]).reduced()
+    if arch == HD80:
+        cfg = dataclasses.replace(cfg, d_model=320, num_heads=4,
+                                  num_kv_heads=2)
+    return cfg
+
+
+def model_phase(dev) -> list[dict]:
+    """Reduced prefill of every family: the card (kernels) against the CPU
+    (plain versions) on the same weights and tokens."""
     from repro_torch.models import transformer as T
     from repro_torch.tree import tree_map
     rows = []
-    for arch in ("yi-6b", RWKV_ARCH):
-        cfg = get_config(arch).reduced()
+    for arch in REDUCED_ARCHS:
+        cfg = reduced_config(arch)
         params = T.init_params(cfg, torch.Generator("cpu").manual_seed(3))
         toks = np.random.default_rng(17).integers(1, cfg.vocab_size, (3, 40))
         with torch.no_grad():
@@ -902,7 +980,7 @@ def model_phase(dev) -> list[dict]:
                                {"tokens": toks})
         torch.cuda.synchronize()
         err = max(float((lg.cpu() - lc).abs().max()), cache_err(cg, cc))
-        row = {"phase": "model", "config": cfg.name, "max_abs_err": err,
+        row = {"phase": "model", "config": arch, "max_abs_err": err,
                "atol": 1e-3}
         log(row)
         assert err <= 1e-3, f"reduced prefill card vs cpu ({arch}): {err}"
@@ -911,19 +989,18 @@ def model_phase(dev) -> list[dict]:
 
 
 def decode_model_phase(dev) -> list[dict]:
-    """Reduced yi-6b, reduced h2o-danube (prompt 96 > window 64: the
-    ring buffer wraps) and reduced rwkv6 (the recurrent state updated in
-    place): prefill, then decode a fixed token sequence (teacher-forced)
-    on the card (kernels) and on the CPU (plain versions), on the same
-    weights; logits at every step and the final caches agree within
-    1e-3."""
-    from repro_torch.configs import get_config
+    """Every reduced family, and reduced h2o-danube at hd 64 (prompt 96 >
+    window 64: the ring buffer wraps, as it does at hd 80), MLA's latent
+    cache and RWKV6's state updated in place: prefill, then decode a
+    fixed token sequence (teacher-forced) on the card (kernels) and on
+    the CPU (plain versions), on the same weights; logits at every step
+    and the final caches agree within 1e-3."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.generate import graft
     from repro_torch.tree import tree_map
     rows = []
-    for arch in ("yi-6b", "h2o-danube-1.8b", RWKV_ARCH):
-        cfg = get_config(arch).reduced()
+    for arch in REDUCED_ARCHS + ("h2o-danube-1.8b",):
+        cfg = reduced_config(arch)
         params = T.init_params(cfg, torch.Generator("cpu").manual_seed(5))
         gparams = tree_map(lambda a: a.to(dev), params)
         rng = np.random.default_rng(24)
@@ -945,8 +1022,9 @@ def decode_model_phase(dev) -> list[dict]:
         err = max(float((logits["card"] - logits["cpu"]).abs().max()),
                   cache_err(caches["card"], caches["cpu"]))
         main = caches["card"].get("main")
-        row = {"phase": "decode_model", "config": cfg.name,
-               "slots": None if main is None else int(main["k"].shape[2]),
+        row = {"phase": "decode_model", "config": arch,
+               "slots": (None if main is None else
+                         int(next(iter(main.values())).shape[2])),
                "steps": int(forced.shape[1]), "max_abs_err": err,
                "atol": 1e-3}
         log(row)
@@ -1038,20 +1116,37 @@ def build_serve_stack(dev, argv):
             {"tokens": stack.toks[:2] % stack.rcfg.vocab_size})
     rc = stack.rcfg
     assert logits.shape == (2, rc.vocab_size), logits.shape
-    if rc.block_type == "rwkv6":
-        h, m = rc.d_model // rc.rwkv_head_dim, rc.rwkv_head_dim
-        st = cache["rwkv"]
-        assert st["wkv"].shape == (rc.num_layers, 2, h, m, m)
-        assert st["tm_prev"].shape == st["cm_prev"].shape \
-            == (rc.num_layers, 2, rc.d_model)
-        assert all(bool(torch.isfinite(a).all()) for a in st.values())
-    else:
-        assert cache["main"]["k"].shape == (rc.num_layers, 2,
-                                            stack.toks.shape[1],
-                                            rc.num_kv_heads,
-                                            rc.resolved_head_dim)
+    assert {g: {k: tuple(a.shape) for k, a in leaves.items()}
+            for g, leaves in cache.items()} \
+        == prefill_cache_shapes(rc, 2, stack.toks.shape[1])
+    assert all(bool(torch.isfinite(a).all()) for leaves in cache.values()
+               for a in leaves.values())
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
     return args, stack, setup_s
+
+
+def prefill_cache_shapes(rc, b: int, t: int) -> dict:
+    """The shapes of the cache a prefill of [b, t] tokens returns: the
+    RWKV6 state; per stack ("dense" for the first dense-MLP layers,
+    "main") the keys and values, or MLA's latent and rope key."""
+    if rc.block_type == "rwkv6":
+        h, m = rc.d_model // rc.rwkv_head_dim, rc.rwkv_head_dim
+        n = rc.num_layers
+        return {"rwkv": {"wkv": (n, b, h, m, m), "tm_prev": (n, b, rc.d_model),
+                         "cm_prev": (n, b, rc.d_model)}}
+    s = min(t, rc.sliding_window) if rc.sliding_window else t
+    if rc.use_mla:
+        leaves = {"c_kv": (b, s, rc.kv_lora_rank),
+                  "k_rope": (b, s, rc.qk_rope_head_dim)}
+    else:
+        kv = (b, s, rc.num_kv_heads, rc.resolved_head_dim)
+        leaves = {"k": kv, "v": kv}
+    n_dense = rc.first_dense_layers
+    out = {"main": {k: (rc.num_layers - n_dense, *v)
+                    for k, v in leaves.items()}}
+    if n_dense:
+        out["dense"] = {k: (n_dense, *v) for k, v in leaves.items()}
+    return out
 
 
 def serve_main_run(dev, args, stack, kernels) -> tuple:
@@ -1128,27 +1223,39 @@ def serve_phase(dev, argv=SERVE_ARGV):
     return out, stack
 
 
-def rwkv_serve_phase(dev) -> tuple:
-    """``--remote-arch rwkv6-1.6b`` at full width: the same requests and
-    checks as the yi-6b serve run; the RWKV6 scan launches once per layer
-    of every remote window and no attention kernel launches."""
+def remote_serve_phase(dev, arch: str, phase: str) -> tuple:
+    """``--remote-arch arch`` at full width: the same requests and checks
+    as the yi-6b serve run. Per remote window, every layer launches the
+    RWKV6 scan (rwkv6) or flash attention (GQA), or neither (MLA, whose
+    attention is plain PyTorch); decode attention never launches."""
     torch.cuda.reset_peak_memory_stats(dev)
     args, stack, setup_s = build_serve_stack(
-        dev, SERVE_ARGV + ["--remote-arch", RWKV_ARCH])
+        dev, SERVE_ARGV + ["--remote-arch", arch])
     rc = stack.rcfg
-    res, main = serve_main_run(dev, args, stack,
-                               ("gate_score", "gate_select", "rwkv6_scan"))
+    per_layer = ("rwkv6_scan" if rc.block_type == "rwkv6" else
+                 None if rc.use_mla else "flash_attention")
+    res, main = serve_main_run(dev, args, stack, (
+        "gate_score", "gate_select") + ((per_layer,) if per_layer else ()))
     counts = main["launches"]
-    want = rc.num_layers * main["remote_windows"]
-    assert counts["rwkv6_scan"] == want, \
-        f"rwkv6_scan: {counts['rwkv6_scan']} launches, not {want}"
-    assert counts["flash_attention"] == counts["decode_attention"] == 0
+    for name in ("rwkv6_scan", "flash_attention", "decode_attention"):
+        want = (rc.num_layers * main["remote_windows"] if name == per_layer
+                else 0)
+        assert counts[name] == want, \
+            f"{name}: {counts[name]} launches, not {want}"
     out = {"setup_s": setup_s, "main": main, "remote": rc.name,
            "remote_layers": rc.num_layers,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-    log({"phase": "serve_rwkv6", **out})
+    log({"phase": phase, **out})
     out["remote_window_profile"] = profile_remote_window(stack)
     return out, stack
+
+
+def free(dev) -> None:
+    """Return the freed model's memory to the card, so that the next
+    phase measures its own peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize(dev)
 
 
 def device_profile(fn) -> dict:
@@ -1205,18 +1312,53 @@ def top2_gap(logits: torch.Tensor) -> torch.Tensor:
     return top[:, 0] - top[:, 1]
 
 
-def generate_phase(dev, stack) -> dict:
-    """Greedy generation with the serve stack's remote model (yi-6b or
-    rwkv6-1.6b) at full width on its weights: GEN_ROWS prompts of
-    GEN_PROMPT tokens, GEN_TOKENS new tokens.
+@contextlib.contextmanager
+def recorded_routes():
+    """While open, every MoE layer's top-k expert ids [tokens, k], in
+    call order, are appended to the list it yields."""
+    from repro_torch.models import moe
+    calls, route = [], moe.route
+
+    def recording(cfg, p, xf):
+        out = route(cfg, p, xf)
+        calls.append(out[0])
+        return out
+
+    moe.route = recording
+    try:
+        yield calls
+    finally:
+        moe.route = route
+
+
+def route_flips(dec: list, pre: list) -> tuple[int, int]:
+    """(flips, compared): dec[i] holds decode step i's per-layer top-k ids
+    [rows, k]; pre[i] the fresh prefill's over the prompt and tokens[:i]
+    at its last position. Step i decodes the token that prefill i + 1
+    ends on: a flip is a (step, layer, row) whose expert set differs."""
+    flips = compared = 0
+    for d_step, p_step in zip(dec, pre[1:]):
+        for d, p in zip(d_step, p_step):
+            diff = (d.sort(-1).values != p.sort(-1).values).any(-1)
+            flips += int(diff.sum())
+            compared += diff.numel()
+    return flips, compared
+
+
+def generate_phase(dev, stack, rows: int = GEN_ROWS,
+                   prompt_len: int = GEN_PROMPT) -> dict:
+    """Greedy generation with the serve stack's remote model at full width
+    on its weights: ``rows`` prompts of ``prompt_len`` tokens, GEN_TOKENS
+    new tokens.
     Asserts shapes, finite likelihoods in (0, 1], the kernels' launches
-    on that run, that a teacher-forced replay of the decode loop on the
-    generated tokens picks those same tokens (so what is timed and
-    compared below is the main path's run), that each step's replayed
-    decode logits lie within GEN_LOGIT_TOL (RWKV_GEN_LOGIT_TOL for rwkv6)
-    of a fresh prefill's over the prompt and the tokens before it, and
-    that each decoded token is what that prefill picks wherever its top-2
-    gap exceeds that tolerance.
+    on that run (MLA and the RWKV6 stack launch no attention kernel),
+    that a teacher-forced replay of the decode loop on the generated
+    tokens picks those same tokens (so what is timed and compared below
+    is the main path's run), that each step's replayed decode logits lie
+    within GEN_LOGIT_TOL[arch] of a fresh prefill's over the prompt and
+    the tokens before it, and that each decoded token is what that
+    prefill picks wherever its top-2 gap exceeds DECISIVE_GAP[arch] (the
+    tolerance where none is given).
     Times the decode steps of the replay, profiles one, and applies the
     2nd supervisor (seq_min_likelihood) to the answers."""
     from repro_torch.core.supervisors import seq_min_likelihood
@@ -1228,7 +1370,7 @@ def generate_phase(dev, stack) -> dict:
     cfg, params = stack.rcfg, stack.rparams
     n_l = cfg.num_layers
     prompt = np.random.default_rng(25).integers(
-        1, cfg.vocab_size, (GEN_ROWS, GEN_PROMPT))
+        1, cfg.vocab_size, (rows, prompt_len))
     batch = {"tokens": prompt}
     greedy_generate(cfg, params, batch, 2)          # warm-up (cuBLAS plans)
     torch.cuda.synchronize(dev)
@@ -1242,16 +1384,19 @@ def generate_phase(dev, stack) -> dict:
     wall_s = time.perf_counter() - t0
     counts = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    assert toks.shape == liks.shape == (GEN_ROWS, GEN_TOKENS), toks.shape
+    assert toks.shape == liks.shape == (rows, GEN_TOKENS), toks.shape
     assert toks.dtype == torch.int32 and liks.dtype == torch.float32
     assert bool(torch.isfinite(liks).all()), "non-finite likelihoods"
     assert bool(((liks > 0) & (liks <= 1)).all()), "likelihood outside (0,1]"
     assert bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
     rwkv = cfg.block_type == "rwkv6"
-    tol = RWKV_GEN_LOGIT_TOL if rwkv else GEN_LOGIT_TOL
+    tol = GEN_LOGIT_TOL[cfg.name]
     if rwkv:    # one scan per layer for the prefill and for every step
         want = {"rwkv6_scan": n_l * GEN_TOKENS, "maxconf": GEN_TOKENS,
                 "flash_attention": 0, "decode_attention": 0}
+    elif cfg.use_mla:   # MLA's attention is plain PyTorch
+        want = {"maxconf": GEN_TOKENS, "flash_attention": 0,
+                "decode_attention": 0}
     else:
         want = {"decode_attention": n_l * (GEN_TOKENS - 1),
                 "maxconf": GEN_TOKENS, "flash_attention": n_l}
@@ -1263,20 +1408,23 @@ def generate_phase(dev, stack) -> dict:
     # step's logits for the comparison with fresh prefills below
     with torch.no_grad():
         lg0, pc = T.prefill(cfg, params, batch)
-        cache = graft(T.make_cache(cfg, GEN_ROWS, GEN_PROMPT + GEN_TOKENS,
-                                   dev), pc)
-        dec_logits, step_ms = [lg0], []
+        cache = graft(T.make_cache(cfg, rows, prompt_len + GEN_TOKENS, dev),
+                      pc)
+        dec_logits, step_ms, dec_routes = [lg0], [], []
         replay = torch.zeros_like(toks)
         replay[:, 0] = maxconf(lg0)["prediction"]
-        for i in range(GEN_TOKENS - 1):
-            torch.cuda.synchronize(dev)
-            t1 = time.perf_counter()
-            lg, cache = T.decode_step(cfg, params, toks[:, i], cache,
-                                      GEN_PROMPT + i)
-            replay[:, i + 1] = maxconf(lg)["prediction"]
-            torch.cuda.synchronize(dev)
-            step_ms.append((time.perf_counter() - t1) * 1e3)
-            dec_logits.append(lg)
+        with recorded_routes() as routes:   # the MoE layers' choices
+            for i in range(GEN_TOKENS - 1):
+                torch.cuda.synchronize(dev)
+                t1 = time.perf_counter()
+                lg, cache = T.decode_step(cfg, params, toks[:, i], cache,
+                                          prompt_len + i)
+                replay[:, i + 1] = maxconf(lg)["prediction"]
+                torch.cuda.synchronize(dev)
+                step_ms.append((time.perf_counter() - t1) * 1e3)
+                dec_logits.append(lg)
+                dec_routes.append(routes[:])
+                routes.clear()
         # the replay picks the tokens it was fed: it is the main path's run
         assert torch.equal(replay, toks), \
             f"replay picks {int((replay != toks).sum())} tokens differently"
@@ -1284,7 +1432,7 @@ def generate_phase(dev, stack) -> dict:
         def one_step():
             with torch.no_grad():
                 lg, _ = T.decode_step(cfg, params, toks[:, -2], cache,
-                                      GEN_PROMPT + GEN_TOKENS - 2)
+                                      prompt_len + GEN_TOKENS - 2)
                 maxconf(lg)
             torch.cuda.synchronize(dev)
 
@@ -1293,53 +1441,67 @@ def generate_phase(dev, stack) -> dict:
         # self-consistency: token i == argmax of a fresh prefill over
         # prompt + tokens[:i] where that prefill's top-2 gap allows it
         seq = torch.as_tensor(prompt, device=dev)
-        checked = agree = 0
-        diffs, gaps = [], []
+        diffs, gaps, hits, pre_routes = [], [], [], []
         for i in range(GEN_TOKENS):
-            lp, _ = T.prefill(cfg, params, {"tokens": seq})
-            gap = top2_gap(lp)
-            gaps.append(gap)
-            ok = gap > tol
-            hit = lp.argmax(-1).to(torch.int32) == toks[:, i]
-            checked += int(ok.sum())
-            agree += int((ok & hit).sum())
-            assert bool(hit[ok].all()), \
-                f"step {i}: decoded token differs from a fresh prefill " \
-                f"with a top-2 gap above {tol}"
-            diffs.append(float((dec_logits[i] - lp).abs().max()))
+            with recorded_routes() as routes:
+                lp, _ = T.prefill(cfg, params, {"tokens": seq})
+            pre_routes.append([r.view(rows, -1, r.shape[-1])[:, -1]
+                               for r in routes])
+            gaps.append(top2_gap(lp))
+            hits.append(lp.argmax(-1).to(torch.int32) == toks[:, i])
+            diffs.append((dec_logits[i] - lp).abs().amax(-1))   # per row
             seq = torch.cat([seq, toks[:, i:i + 1].long()], dim=1)
         torch.cuda.synchronize(dev)
-    pairs = GEN_ROWS * GEN_TOKENS
-    assert max(diffs) <= tol, \
-        f"decode and prefill logits differ by {max(diffs)}"
-    assert checked >= pairs // (32 if rwkv else 8), \
-        f"only {checked} of {pairs} tokens had a decisive prefill gap"
-    gap_q = torch.quantile(torch.cat(gaps).float().cpu(),
+    diff = torch.stack(diffs).float().cpu()
+    diff_q = torch.quantile(diff.flatten(), torch.tensor(
+        [0.5, 0.9, 1.0])).tolist()
+    max_diff = float(diff.max())
+    flips, compared = route_flips(dec_routes, pre_routes)
+    gap, hit = torch.stack(gaps), torch.stack(hits)
+    decisive = DECISIVE_GAP.get(cfg.name, tol)
+    ok = gap > decisive
+    checked, agree = int(ok.sum()), int((ok & hit).sum())
+    pairs = rows * GEN_TOKENS
+    gap_q = torch.quantile(gap.flatten().float().cpu(),
                            torch.tensor([0.1, 0.25, 0.5, 0.75, 0.9])).tolist()
+    assert max_diff <= tol, \
+        f"{cfg.name}: decode and prefill logits differ by {max_diff} " \
+        f"> {tol} (prefill top-2 gap quantiles {gap_q})"
+    assert checked == agree, \
+        f"{cfg.name}: {checked - agree} decoded tokens differ from a " \
+        f"fresh prefill with a top-2 gap above {decisive}"
+    floor = pairs // CHECKED_FLOOR.get(cfg.name, 8)
+    assert checked >= floor, \
+        f"only {checked} of {pairs} tokens had a decisive prefill gap"
 
     conf = seq_min_likelihood(liks).cpu().numpy()
     t_remote = nominal_quantile_threshold(conf, 0.25)
     med_ms = statistics.median(step_ms)
+    slots = prompt_len + GEN_TOKENS
+    if cfg.sliding_window:
+        slots = min(slots, cfg.sliding_window)
     out = {"phase": "generate", "config": cfg.name, "layers": n_l,
-           "rows": GEN_ROWS, "prompt": GEN_PROMPT, "new_tokens": GEN_TOKENS,
+           "rows": rows, "prompt": prompt_len, "new_tokens": GEN_TOKENS,
            "wall_s": wall_s,
-           "tokens_per_s_end_to_end": GEN_ROWS * GEN_TOKENS / wall_s,
+           "tokens_per_s_end_to_end": rows * GEN_TOKENS / wall_s,
            "decode_step_ms_median": med_ms,
            "decode_step_ms_range": [min(step_ms), max(step_ms)],
-           "decode_tokens_per_s": GEN_ROWS / med_ms * 1e3,
+           "decode_tokens_per_s": rows / med_ms * 1e3,
            "peak_mem_gib": peak_gib, "launches": counts,
            "prefill_checked": checked, "prefill_agree": agree,
-           "pairs": pairs, "logit_tol": tol,
+           "pairs": pairs, "logit_tol": tol, "decisive_gap": decisive,
+           "decode_vs_prefill_logit_diff_q50_90_100": diff_q,
+           "moe_route_flips": flips, "moe_routes_compared": compared,
            "prefill_top2_gap_q10_25_50_75_90": gap_q,
-           "decode_vs_prefill_max_logit_diff": max(diffs),
+           "decode_vs_prefill_max_logit_diff": max_diff,
            "replay_agree": int((replay == toks).sum()),
            "seq_min_likelihood": conf.tolist(), "t_remote": t_remote,
            "accepted": int((conf > t_remote).sum()),
            "rejected": int((conf <= t_remote).sum())}
     log(out)
     out["decode_step_profile"] = prof_row = {
-        "phase": "decode_step_profile", "config": cfg.name, "rows": GEN_ROWS,
-        "kv_slots": None if rwkv else GEN_PROMPT + GEN_TOKENS, **profile}
+        "phase": "decode_step_profile", "config": cfg.name, "rows": rows,
+        "kv_slots": None if rwkv else slots, **profile}
     log(prof_row)
     return out
 
@@ -1541,8 +1703,7 @@ def train_phase(dev, arch: str, stream_steps: int, fixed_steps: int,
     from repro_torch.train.optimizer import adamw_step_
     from repro_torch.tree import tree_leaves
 
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     steps = stream_steps + fixed_steps
     args = train.parse_args(["--arch", arch, "--steps", str(steps)])
@@ -1632,8 +1793,7 @@ def train_phase(dev, arch: str, stream_steps: int, fixed_steps: int,
                                       "config": cfg.name, **profile}
     log(prof_row)
     del params, opt_state, step_fn
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(dev)
     return out
 
 
@@ -1727,26 +1887,53 @@ def main() -> int:
          "dir": str(out_dir.relative_to(ROOT)), "ptxas": RESULTS["ptxas"]})
 
     phases = RESULTS["phases"]
+    # each phase's seconds, the frees between them in the next one's
+    seconds = RESULTS["phase_s"] = {}
+    clock = [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        seconds[name], clock[0] = now - clock[0], now
+
     phases["kernels"] = kern = kernel_phase(dev)
+    lap("kernels")
     phases["model"] = model_phase(dev)
     phases["decode_model"] = decode_model_phase(dev)
+    lap("model")
     serve, stack = serve_phase(dev)
     phases["serve"] = serve
     phases["generate"] = gen = generate_phase(dev, stack)
+    lap("yi-6b")
     phases["supervisors"] = sup = supervisor_phase(dev)
+    lap("supervisors")
     # free yi-6b, so that rwkv6's phases measure their own peak memory
     del stack
-    gc.collect()
-    torch.cuda.empty_cache()
-    phases["serve_rwkv6"], stack = rwkv_serve_phase(dev)
+    free(dev)
+    phases["serve_rwkv6"], stack = remote_serve_phase(dev, RWKV_ARCH,
+                                                      "serve_rwkv6")
     phases["generate_rwkv6"] = rwkv_gen = generate_phase(dev, stack)
-    # free rwkv6: the train phases measure their own peak memory
+    lap(RWKV_ARCH)
+    # then each other full-width arch, one at a time
+    for arch in FULL_WIDTH_ARCHS:
+        del stack
+        free(dev)
+        phases[f"serve_{arch}"], stack = remote_serve_phase(
+            dev, arch, f"serve_{arch}")
+        phases[f"generate_{arch}"] = generate_phase(dev, stack)
+        if stack.rcfg.sliding_window:
+            phases[f"generate_{arch}_long"] = generate_phase(
+                dev, stack, rows=1, prompt_len=LONG_PROMPT)
+        lap(arch)
+    # free it: the train phases measure their own peak memory
     del stack
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(dev)
     phases["train_parity"] = train_parity_phase(dev)
+    lap("train_parity")
     phases["train"] = train_phase(dev, "yi-6b", 6, 6, "train")
+    lap("train")
     phases["train_rwkv6"] = train_phase(dev, RWKV_ARCH, 2, 4, "train_rwkv6")
+    lap("train_rwkv6")
+    log({"phase": "seconds", **seconds})
     line = kernels_line(kern, serve, gen, rwkv_gen, sup)
     RESULTS["kernels"] = line["kernels"]
     out = ROOT / "build"

@@ -43,10 +43,13 @@
 // four keys at a time. One __syncthreads per tile (two for bf16: the
 // scores). Each block writes its unnormalised partial
 // (acc, m, l); a second pass merges the splits of each (batch, head) with
-// the same rescaling and divides by the sum. Contract: 1 <= kv_len[b]
-// (the decode path passes pos + 1); kv_len = 0 writes 0, as the Pallas
-// kernel does. S needs no alignment; hd is 64 or 128; G <= 16; inputs
-// bf16 or f32, output in q's dtype.
+// the same rescaling and divides by the sum. A head dim of 80 is staged
+// in rows of 128 (the swizzle stays within a row's 16 bf16 or 32 f32
+// chunks; the padding is never loaded nor read): its scores take 5
+// k-steps, and its P V gives each lane 4 columns, so lanes 20-31 sit that
+// loop out. Contract: 1 <= kv_len[b] (the decode path passes pos + 1);
+// kv_len = 0 writes 0, as the Pallas kernel does. S needs no alignment;
+// hd is 64, 80 or 128; G <= 16; inputs bf16 or f32, output in q's dtype.
 
 #include "kernel_common.cuh"
 
@@ -67,11 +70,17 @@ template <typename T>
 constexpr bool kMma = sizeof(T) == 2;
 __host__ __device__ constexpr int mma_heads(int gp) { return gp > 8 ? gp : 8; }
 
-// shared bytes: the K and V rings; then for bf16 the scores S[heads][KT+1]
-// (fp32), for f32 q (fp32, padded group); then P per warp
+// the row width a head dim is staged at: 64 or 128 (80 -> 128)
+__host__ __device__ constexpr int staged_hd(int hd) {
+  return (hd + 63) / 64 * 64;
+}
+
+// shared bytes: the K and V rings (rows at the staged width); then for
+// bf16 the scores S[heads][KT+1] (fp32), for f32 q (fp32, padded group);
+// then P per warp
 template <typename T, int HD, int GP>
 constexpr int smem_bytes() {
-  return 2 * kStages * KT * HD * static_cast<int>(sizeof(T)) +
+  return 2 * kStages * KT * staged_hd(HD) * static_cast<int>(sizeof(T)) +
          (kMma<T> ? mma_heads(GP) * (KT + 1) * 4 : GP * HD * 4) +
          kWarps * heads_per_warp(GP) * KT * 4;
 }
@@ -151,9 +160,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int S, int H, int KH, int chunk, int nsplit, float scale) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte chunk
   constexpr int CPR = HD / VEC;        // chunks per cached row (>= 8)
+  constexpr int HDS = staged_hd(HD);   // a staged row's elements
   constexpr int HPW = heads_per_warp(GP);
-  constexpr int DPL = HD / 32;         // output columns per lane
-  constexpr int TILE = KT * HD;        // elements per K (or V) tile
+  constexpr int DPL = HDS / 32;        // output columns per lane
+  constexpr int TILE = KT * HDS;       // elements per K (or V) tile
+  constexpr int LOADS = KT * CPR;      // 16-byte copies per K (or V) tile
+  static_assert(HD % 16 == 0 && (HDS == 64 || HDS == 128), "head dim");
   constexpr int NQT = mma_heads(GP) / 8;  // 8-head column tiles (bf16)
   constexpr int SROW = KT + 1;            // S row stride (bf16)
   extern __shared__ __align__(16) unsigned char smem[];
@@ -183,11 +195,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* vs = Vs + (i % kStages) * TILE;
       const int s0 = s_begin + i * KT;
 #pragma unroll
-      for (int x = 0; x < KT * CPR / kThreads; ++x) {
+      for (int x = 0; x < (LOADS + kThreads - 1) / kThreads; ++x) {
         const int e = tid + x * kThreads, r = e / CPR, c = e % CPR;
+        if (LOADS % kThreads != 0 && e >= LOADS) break;
         const bool ok = s0 + r < s_end;
         const size_t off = ok ? (size_t)(s0 + r) * row + c * VEC : 0;
-        const int at = r * HD + ((c ^ (r & 7)) * VEC);
+        const int at = r * HDS + ((c ^ (r & 7)) * VEC);
         cp_async16(smem_addr(ks + at), kb + off, ok);
         cp_async16(smem_addr(vs + at), vb + off, ok);
       }
@@ -232,8 +245,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
   }
-  // the lane's output columns lie in 16-byte chunk vc at offset voff
+  // the lane's output columns lie in 16-byte chunk vc at offset voff;
+  // at hd 80 lanes 20-31 own padding columns and take no part in P V
   const int vc = lane * DPL / VEC, voff = lane * DPL % VEC;
+  const bool cols_ok = HD == HDS || lane * DPL < HD;
 
   for (int it = 0; it < ntiles; ++it) {
     cp_async_wait<kStages - 2>();  // tile it landed, for this thread
@@ -257,8 +272,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int kk = 0; kk < HD / 16; ++kk) {
           uint32_t a[4];
           const int r = m0 + (mat & 1) * 8 + mrow;
-          ldsm_x4(smem_addr(ks + r * HD + (((2 * kk + (mat >> 1)) ^ mrow)
-                                           * VEC)),
+          ldsm_x4(smem_addr(ks + r * HDS + (((2 * kk + (mat >> 1)) ^ mrow)
+                                            * VEC)),
                   a);
 #pragma unroll
           for (int nt = 0; nt < NQT; ++nt)
@@ -285,7 +300,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < HPW; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
-      const T* krow = ks + lane * HD;
+      const T* krow = ks + lane * HDS;
 #pragma unroll
       for (int c = 0; c < CPR; ++c) {
         float kx[VEC];
@@ -331,7 +346,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();  // the warp's P is written and read by the warp alone
     // O += P V in fp32: P four keys at a time (broadcast reads)
 #pragma unroll 2
-    for (int c = 0; c < KT; c += 4) {
+    for (int c = 0; c < (cols_ok ? KT : 0); c += 4) {
       float pc[HPW][4];
 #pragma unroll
       for (int i = 0; i < HPW; ++i) {
@@ -345,7 +360,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
         const int key = c + u;
         float vx[DPL];
-        load_vec<T, DPL>(vs + key * HD + ((vc ^ (key & 7)) * VEC) + voff, vx);
+        load_vec<T, DPL>(vs + key * HDS + ((vc ^ (key & 7)) * VEC) + voff,
+                         vx);
 #pragma unroll
         for (int i = 0; i < HPW; ++i)
 #pragma unroll
@@ -363,9 +379,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int g = h0 + i;
     if (g >= G) break;  // warp-uniform
     const size_t slot = ((size_t)bk * nsplit + split) * G + g;
+    if (cols_ok) {
 #pragma unroll
-    for (int j = 0; j < DPL; ++j)
-      part_o[slot * HD + lane * DPL + j] = acc[i][j];
+      for (int j = 0; j < DPL; ++j)
+        part_o[slot * HD + lane * DPL + j] = acc[i][j];
+    }
     if (lane == 0) {
       part_ml[slot * 2] = m[i];
       part_ml[slot * 2 + 1] = l[i];
@@ -462,16 +480,16 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   const int* len = static_cast<const int*>(kv_len);
   float* po = static_cast<float*>(part_o);
   float* pml = static_cast<float*>(part_ml);
+#define LAUNCH(T, D)                                                      \
+  launch<T, D>(q, k, v, len, o, po, pml, B, S, H, KH, chunk, nsplit, scale, \
+               smem, s)
   if (dtype == DT_F32) {
-    if (HD == 128)
-      return launch<float, 128>(q, k, v, len, o, po, pml, B, S, H, KH, chunk,
-                                nsplit, scale, smem, s);
-    return launch<float, 64>(q, k, v, len, o, po, pml, B, S, H, KH, chunk,
-                             nsplit, scale, smem, s);
+    if (HD == 128) return LAUNCH(float, 128);
+    if (HD == 80) return LAUNCH(float, 80);
+    return LAUNCH(float, 64);
   }
-  if (HD == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, len, o, po, pml, B, S, H, KH,
-                                      chunk, nsplit, scale, smem, s);
-  return launch<__nv_bfloat16, 64>(q, k, v, len, o, po, pml, B, S, H, KH,
-                                   chunk, nsplit, scale, smem, s);
+  if (HD == 128) return LAUNCH(__nv_bfloat16, 128);
+  if (HD == 80) return LAUNCH(__nv_bfloat16, 80);
+  return LAUNCH(__nv_bfloat16, 64);
+#undef LAUNCH
 }

@@ -26,16 +26,22 @@
 // the next tile is in flight while this one is computed; a proxy fence
 // makes the copies visible to wgmma. Q, K and V tiles are stored as
 // 64-column atoms with the 128-byte swizzle that wgmma's shared-memory
-// descriptors read. S = Q K^T is wgmma m64n64k16 with both operands
-// K-major from shared memory (hd/16 of them); the online softmax (base 2,
+// descriptors read. A head dim of 80 is staged in the hd-128 layout (two
+// atoms): its columns 80-127 are zero-filled by cp.async, never read from
+// device memory. S = Q K^T is wgmma m64n64k16 with both operands K-major
+// from shared memory (ceil(hd/16) of them: at hd 80 the fifth reads
+// columns 64-79 of the second atom); the online softmax (base 2,
 // running max and sum per row) runs on the fp32 accumulator registers; P
 // is rounded to bf16 in registers, where the accumulator's layout is
-// already the A operand's, and O += P V is wgmma m64n{hd}k16 with A from
-// registers and V N-major (transposed) from shared memory. Rounding P to
-// bf16 is the only rounding the fp32 version does not have. Blocks are
-// issued latest rows first, so the causal mask's longest rows start
-// first. Not yet done: TMA loads from a producer warp, and overlapping
-// one tile's softmax with the next tile's Q K^T (two S register sets).
+// already the A operand's, and O += P V is wgmma m64n{64,128}k16 (the
+// staged width) with A from registers and V N-major (transposed) from
+// shared memory; at hd 80, O's columns 80-127 sum zeros and are never
+// stored, a 60% surplus of P V's MMA work (a 64 + 16 split would avoid
+// it). Rounding P to bf16 is the only rounding the fp32 version does not
+// have. Blocks are issued latest rows first, so the causal mask's longest
+// rows start first. Not yet done: TMA loads from a producer warp, and
+// overlapping one tile's softmax with the next tile's Q K^T (two S
+// register sets).
 //
 // f32: on the CUDA cores (flash_prefill_kernel), since the JAX kernel
 // multiplies f32 at Precision.HIGHEST, which TF32 on the tensor cores
@@ -182,10 +188,17 @@ constexpr int MB = 64;      // fused rows per block: one warpgroup's M
 constexpr int NB = 64;      // keys per tile
 constexpr int kStages = 2;  // K/V tiles in the ring
 
+// the width a head dim is staged at: whole 64-column atoms (80 -> 128)
+__host__ __device__ constexpr int staged_hd(int hd) {
+  return (hd + 63) / 64 * 64;
+}
+
 // shared bytes of flash_wgmma_kernel: Q, the K ring and the V ring, each
-// a [64, HD] bf16 tile, plus 1 KB to align the tiles to 1024 bytes
+// a [64, staged_hd(HD)] bf16 tile, plus 1 KB to align the tiles to 1024
+// bytes
 constexpr int mma_smem_bytes(int hd) {
-  return (MB + 2 * kStages * NB) * hd * static_cast<int>(sizeof(bf16)) +
+  return (MB + 2 * kStages * NB) * staged_hd(hd) *
+             static_cast<int>(sizeof(bf16)) +
          1024;
 }
 
@@ -231,18 +244,19 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // one tile of NB keys of K and V (rows s0 .. s0 + NB - 1, those past S
-// zero-filled) into the ring's stage at shared addresses ks, vs
+// and columns past HD zero-filled) into the ring's stage at shared
+// addresses ks, vs
 template <int HD>
 __device__ __forceinline__ void load_kv(uint32_t ks, uint32_t vs,
                                         const bf16* __restrict__ k,
                                         const bf16* __restrict__ v,
                                         size_t base, size_t stride, int s0,
                                         int S, int tid) {
-  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  constexpr int CPR = staged_hd(HD) / 8;  // 16-byte chunks per staged row
 #pragma unroll
   for (int x = 0; x < NB * CPR / kThreads; ++x) {
     const int e = tid + x * kThreads, i = e / CPR, c = e % CPR, s = s0 + i;
-    const bool ok = s < S;
+    const bool ok = s < S && c < HD / 8;
     const size_t off = ok ? base + (size_t)s * stride + c * 8 : 0;
     cp_async16(ks + atom_off<NB>(i, c), k + off, ok);
     cp_async16(vs + atom_off<NB>(i, c), v + off, ok);
@@ -256,11 +270,13 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    int S, int H, int KH, int causal, int window,
                    float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem[];
-  constexpr int CPR = HD / 8;       // 16-byte chunks per row
-  constexpr int KSTEP = HD / 16;    // k-steps of Q K^T
-  constexpr int NT = NB / 8;        // 8-key column tiles of S
-  constexpr int OT = HD / 8;        // 8-wide column tiles of O
-  constexpr uint32_t TB = MB * HD * 2;  // bytes of one tile
+  constexpr int HDS = staged_hd(HD);    // staged width: 64 or 128
+  constexpr int CPR = HDS / 8;          // 16-byte chunks per staged row
+  constexpr int KSTEP = (HD + 15) / 16;  // k-steps of Q K^T
+  constexpr int NT = NB / 8;            // 8-key column tiles of S
+  constexpr int OT = HDS / 8;           // 8-wide column tiles of O
+  constexpr uint32_t TB = MB * HDS * 2;  // bytes of one tile
+  static_assert(HD % 16 == 0 && (HDS == 64 || HDS == 128), "head dim");
   static_assert(MB == NB, "Q, K and V tiles share one layout");
   const uint32_t Qb = (smem_addr(smem) + 1023u) & ~1023u;
   const uint32_t Kb = Qb + TB, Vb = Qb + (1 + kStages) * TB;
@@ -282,7 +298,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int x = 0; x < MB * CPR / kThreads; ++x) {
     const int e = tid + x * kThreads, i = e / CPR, c = e % CPR, r = r0 + i;
-    const bool ok = r < nrows;
+    const bool ok = r < nrows && c < HD / 8;
     size_t off = 0;
     if (ok) {
       const int t = r / G, g = r - t * G;
@@ -412,7 +428,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < NB / 16; ++kk) {
-      if constexpr (HD == 128)
+      if constexpr (HDS == 128)
         wgmma_o128(&acc[0][0], pa[kk], dv[kk]);
       else
         wgmma_o64(&acc[0][0], pa[kk], dv[kk]);
@@ -433,7 +449,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = r0 + warp * 16 + g8 + 8 * h, g = r - row_t[h] * G;
     bf16* out = o + (((size_t)b * Tq + row_t[h]) * H + kh * G + g) * HD;
 #pragma unroll
-    for (int j = 0; j < OT; ++j)
+    for (int j = 0; j < HD / 8; ++j)  // O's padding columns are dropped
       *reinterpret_cast<__nv_bfloat162*>(out + j * 8 + q4 * 2) =
           __floats2bfloat162_rn(acc[j][2 * h] * inv,
                                 acc[j][2 * h + 1] * inv);
@@ -466,8 +482,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q [B, Tq, H, HD], k/v [B, S, KH, HD] -> o [B, Tq, H, HD], all contiguous
-// and of one dtype (DT_F32 / DT_BF16; bf16 16-byte aligned); HD is 64 or
-// 128; H % KH == 0. smem_bytes: the bf16 kernel's dynamic shared memory
+// and of one dtype (DT_F32 / DT_BF16; bf16 16-byte aligned); HD is 64, 80
+// or 128; H % KH == 0. smem_bytes: the bf16 kernel's dynamic shared memory
 // as the wrapper's plan computed it (checked here); unused for f32.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* o, int dtype, int B, int Tq, int S, int H,
@@ -477,6 +493,8 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   if (dtype == DT_F32) {
     if (HD == 128)
       launch_f32<128>(q, k, v, o, B, Tq, S, H, KH, causal, window, scale, s);
+    else if (HD == 80)
+      launch_f32<80>(q, k, v, o, B, Tq, S, H, KH, causal, window, scale, s);
     else
       launch_f32<64>(q, k, v, o, B, Tq, S, H, KH, causal, window, scale, s);
     return cudaGetLastError();
@@ -484,6 +502,9 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   if (HD == 128)
     return launch_bf16<128>(q, k, v, o, B, Tq, S, H, KH, causal, window,
                             scale, smem_bytes, s);
+  if (HD == 80)
+    return launch_bf16<80>(q, k, v, o, B, Tq, S, H, KH, causal, window,
+                           scale, smem_bytes, s);
   return launch_bf16<64>(q, k, v, o, B, Tq, S, H, KH, causal, window, scale,
                          smem_bytes, s);
 }

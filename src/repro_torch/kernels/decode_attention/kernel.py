@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 MAX_GROUP = 16          # query heads per KV head (the kernel's registers)
 KEY_TILE = 32           # keys per staged tile; a split is a multiple
 STAGES = 4              # tiles in the cp.async ring
@@ -39,6 +39,12 @@ def _lib() -> ctypes.CDLL:
         "decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, _F, _I, _P],
     })
+
+
+def staged_head_dim(hd: int) -> int:
+    """The row width the kernel stages a head dim at in shared memory:
+    64 or 128 (hd 80 -> 128; the padding is never loaded)."""
+    return -(-hd // 64) * 64
 
 
 class DecodePlan(NamedTuple):
@@ -64,10 +70,12 @@ def splits(b: int, kh: int, s: int, g: int, hd: int,
     query heads per KV head. Bytes, not blocks, set it: each block keeps
     STAGES - 1 tiles in flight, the shared memory decides how many blocks
     an SM holds, and the S axis is cut so that the B*K pairs fill one
-    wave of them (more splits would leave a partial second wave). Raises
-    once per plan if the shared memory exceeds what a block may use."""
+    wave of them (more splits would leave a partial second wave). The
+    rings hold rows at the staged width (hd 80 -> 128: the hd-128
+    figure). Raises once per plan if the shared memory exceeds what a
+    block may use."""
     gp = 1 << max(0, g - 1).bit_length()
-    tile = KEY_TILE * hd * esz                     # bytes of K (or V)
+    tile = KEY_TILE * staged_head_dim(hd) * esz    # bytes of K (or V)
     # the K and V rings; the scores [max(gp, 8), tile + 1] in fp32 (bf16,
     # from the tensor cores) or q [gp, hd] in fp32 (f32); P per warp
     scores = max(gp, 8) * (KEY_TILE + 1) * 4 if esz == 2 else gp * hd * 4
@@ -87,8 +95,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
     """q [B, H, hd]; caches [B, S, K, hd] (one dtype, f32 or bf16, CUDA,
-    contiguous; hd 64 or 128; H % K == 0, H/K <= 16); kv_len [B] int32 on
-    the same device, each in [1, S] -> [B, H, hd] in q's dtype."""
+    contiguous; hd 64, 80 or 128; H % K == 0, H/K <= 16); kv_len [B]
+    int32 on the same device, each in [1, S] -> [B, H, hd] in q's
+    dtype."""
     build.require_cuda(q, "q", DTYPE_CODES, 3)
     build.require_cuda(k_cache, "k_cache", DTYPE_CODES, 4)
     build.require_cuda(v_cache, "v_cache", DTYPE_CODES, 4)

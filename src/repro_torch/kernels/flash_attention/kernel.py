@@ -14,7 +14,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 MAX_SMEM_PER_BLOCK = 232_448   # the most shared memory one H100 block may use
 THREADS = 128
 
@@ -44,18 +44,26 @@ class FlashPlan(NamedTuple):
     tensor_cores: bool
 
 
+def staged_head_dim(hd: int) -> int:
+    """The width the bf16 kernel stages a head dim at, in shared memory:
+    whole 64-column swizzle atoms (hd 80 -> 128, its columns 80-127
+    zero-filled)."""
+    return -(-hd // 64) * 64
+
+
 @functools.cache
 def plan(b: int, t: int, kh: int, g: int, hd: int,
          dtype: torch.dtype) -> FlashPlan:
     """The launch plan for q [b, t, kh*g, hd] in ``dtype``: bf16 on the
     tensor cores (one warpgroup's 64 rows, 64-key tiles, a 2-stage
-    cp.async ring of bf16 K/V with Q, in dynamic shared memory aligned to
-    1 KB); f32 on the CUDA cores (16 rows, 32-key tiles of fp32 in static
-    shared memory). Raises if the shared memory exceeds what a block may
-    use."""
+    cp.async ring of bf16 K/V with Q, at the staged width, in dynamic
+    shared memory aligned to 1 KB); f32 on the CUDA cores (16 rows, 32-key
+    tiles of fp32 in static shared memory). Raises if the shared memory
+    exceeds what a block may use."""
     if dtype == torch.bfloat16:
         rows, keys, stages = 64, 64, 2
-        smem = (rows + 2 * stages * keys) * hd * 2 + 1024  # + alignment
+        smem = (rows + 2 * stages * keys) * staged_head_dim(hd) * 2 \
+            + 1024  # + alignment
     else:
         rows, keys, stages = 16, 32, 1
         smem = (rows * (hd + 1) + 2 * keys * (hd + 1) + rows * (keys + 1)) * 4
@@ -68,7 +76,8 @@ def plan(b: int, t: int, kh: int, g: int, hd: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, T, H, hd]; k, v: [B, S, K, hd] (one dtype, f32 or bf16,
-    CUDA, contiguous, bf16 16-byte aligned; hd 64 or 128; H % K == 0) ->
+    CUDA, contiguous, bf16 16-byte aligned; hd 64, 80 or 128;
+    H % K == 0) ->
     [B, T, H, hd]."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         build.require_cuda(x, name, DTYPE_CODES, 4)

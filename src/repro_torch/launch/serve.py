@@ -6,8 +6,10 @@ The port of ``repro.launch.serve``: the same flags, plus ``--device
 fallback to the CPU).
 
 Local tier: a trained surrogate classifier. Remote tier: the model of
-``--remote-arch`` (yi-6b by default; the dense attention family or
-rwkv6-1.6b), at full width unless ``--smoke``, reached through the
+``--remote-arch`` (yi-6b by default; any arch of the attention family —
+dense GQA, qwen2's QKV bias, h2o-danube's sliding window at head dim 80,
+deepseek's MLA and MoE, qwen3's MoE — or rwkv6-1.6b; not zamba2 and not
+the frontend archs), at full width unless ``--smoke``, reached through the
 fault-aware transport with a content-keyed response cache. The 1st-level
 supervisor escalates the lowest-confidence requests through the
 on-device confidence gate; the 2nd-level supervisor filters untrusted

@@ -218,14 +218,15 @@ def attn_prefill(cfg: ModelConfig, p: Params, x, positions):
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
+                  layers: int | None = None,
                   device: torch.device) -> Params:
-    """Contiguous zeroed KV cache [L, B, slots, K, hd] on ``device``. SWA
-    caches only the window (ring buffer of ``min(max_len, window)``
-    slots)."""
+    """Contiguous zeroed KV cache [L, B, slots, K, hd] on ``device``
+    (``layers`` defaults to the config's). SWA caches only the window
+    (ring buffer of ``min(max_len, window)`` slots)."""
     slots = min(max_len, cfg.sliding_window) if cfg.sliding_window \
         else max_len
-    shape = (cfg.num_layers, batch, slots, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    shape = (cfg.num_layers if layers is None else layers, batch, slots,
+             cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

@@ -1,4 +1,5 @@
-"""The remote tier's model API, in PyTorch — dense attention and RWKV6.
+"""The remote tier's model API, in PyTorch — the attention family (GQA or
+MLA attention, a dense or MoE MLP) and RWKV6.
 
 Plain functions over the JAX package's parameter tree:
 
@@ -13,21 +14,33 @@ Layer weights are stacked ``[L, ...]`` as in ``repro.models.transformer``;
 where JAX scans over the stack, the port loops over per-layer views of the
 stacked tensors, made by one ``unbind`` per leaf (``tree.unstack``; the
 weights are never copied into per-layer modules). ``params["blocks"]``
-may also be given as that list of per-layer trees: the train step does
-so, to collect each layer's gradient on its own.
+and ``params["dense_blocks"]`` may also be given as that list of
+per-layer trees: the train step does so, to collect each layer's
+gradient on its own.
+
+An attention block holds GQA attention (``layers``) or MLA (``use_mla``,
+``models.mla``) and a swiglu MLP or an MoE layer (``num_experts``,
+``models.moe``). A config with ``first_dense_layers`` runs that many
+dense-MLP blocks, ``params["dense_blocks"]``, before the others, and its
+serving cache keeps them under ``"dense"`` beside ``"main"``. MLA caches
+its latent ``{"c_kv", "k_rope"}`` in place of ``{"k", "v"}``.
 
 ``forward`` and ``loss_fn`` are the train path: functional, differentiable
-and free of kernels — attention through the plain ``gqa_attention`` and
-the RWKV6 recurrence through its plain loop, as JAX computes them, with
-``remat`` checkpointing each layer (``torch.utils.checkpoint``, where JAX
-uses ``jax.checkpoint``). Cross-entropy goes in sequence chunks, each
+and free of kernels — attention through the plain ``gqa_attention``, MLA
+and MoE in plain PyTorch (JAX runs them in jnp) and the RWKV6 recurrence
+through its plain loop, as JAX computes them, with ``remat``
+checkpointing each layer (``torch.utils.checkpoint``, where JAX uses
+``jax.checkpoint``). ``forward`` returns the MoE layers' load-balance
+losses, summed, as ``moe_aux``, which ``loss_fn`` adds with
+``router_aux_loss_coef``. Cross-entropy goes in sequence chunks, each
 checkpointed, so the [B, T, V] logits live for one chunk at a time.
 
 ``prefill`` and ``decode_step`` are the serving path, through the Hopper
 kernels on a CUDA tensor (call them under ``torch.no_grad()``: the kernels
-have no backward). ``decode_step`` writes the new token's keys and values
-into the cache in place (JAX returns a new cache; the port returns the
-same one).
+have no backward); MLA and MoE launch none, and MoE runs dropless there.
+``decode_step`` writes the new token's keys and values (MLA: its latent
+and rope key) into the cache in place (JAX returns a new cache; the port
+returns the same one).
 
 RWKV6 (``block_type == "rwkv6"``) keeps the recurrent state
 ``{"rwkv": {"wkv" [L,B,H,M,M], "tm_prev", "cm_prev" [L,B,D]}}`` (fp32) of
@@ -36,7 +49,7 @@ stack from a zeroed state and returns it; ``decode_step`` runs the same
 stack on one token (the token shift then concatenates the stored previous
 token with an empty ``x[:, :-1]``, as JAX does) and updates the state in
 place, layer by layer; ``forward`` runs it from a zero state without
-keeping one. The moe, mla, mamba2 and frontend families (with the VLM
+keeping one. The mamba2 (zamba) and frontend families (with the VLM
 branch of ``loss_fn``), and ``decode_step`` on ``[B, D]`` embeddings, come
 with later slices of the port.
 """
@@ -50,6 +63,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models.layers import (Params, attention_params, attn_decode,
                                        attn_forward, attn_prefill, dense,
@@ -63,41 +78,58 @@ Batch = dict[str, Any]
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
 
+# the attention family's stacks in the order they run, each with its
+# serving cache's key
+STACKS = (("dense_blocks", "dense"), ("blocks", "main"))
+
 
 def _check_family(cfg: ModelConfig) -> None:
-    if (cfg.block_type not in ("attn", "rwkv6") or cfg.use_mla
-            or cfg.is_moe or cfg.takes_embeddings):
+    if cfg.block_type == "mamba2" or cfg.takes_embeddings:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attention and rwkv6 families are "
-            f"ported; moe, mla, mamba2 and frontend models come with a "
-            f"later slice")
+            f"{cfg.name}: the mamba2 (zamba) and frontend families come "
+            f"with a later slice of the port")
 
 
 def _is_rwkv(cfg: ModelConfig) -> bool:
     return cfg.block_type == "rwkv6"
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    """Random parameters drawn directly on ``gen.device`` in the config's
-    dtype (a full-width bf16 model never needs an fp32 copy)."""
-    _check_family(cfg)
-    dtype, dev = DTYPES[cfg.dtype], gen.device
-    n = cfg.num_layers
-    d = cfg.d_model
-    out_dim = cfg.num_classes or cfg.vocab_size
+def _blocks(gen: torch.Generator, cfg: ModelConfig, dtype, n: int,
+            moe: bool) -> Params:
+    """``n`` stacked blocks: the norms, then RWKV6's mixes, or attention
+    (GQA or MLA) and a swiglu MLP or an MoE layer."""
+    d, dev = cfg.d_model, gen.device
     blocks = {"norm1": torch.ones((n, d), dtype=dtype, device=dev),
               "norm2": torch.ones((n, d), dtype=dtype, device=dev)}
     if _is_rwkv(cfg):
         blocks.update(rwkv.rwkv6_params(gen, cfg, dtype, stack=(n,)))
+        return blocks
+    attn = mla_mod.mla_params if cfg.use_mla else attention_params
+    blocks["attn"] = attn(gen, cfg, dtype, stack=(n,))
+    if moe:
+        blocks["moe"] = moe_mod.moe_params(gen, cfg, dtype, stack=(n,))
     else:
-        blocks["attn"] = attention_params(gen, cfg, dtype, stack=(n,))
         blocks["mlp"] = swiglu_params(gen, d, cfg.d_ff, dtype, stack=(n,))
-    return {
-        "embed": normal(gen, (cfg.vocab_size, d), dtype, 0.02),
-        "final_norm": torch.ones(d, dtype=dtype, device=dev),
-        "head": dense_params(gen, d, out_dim, dtype),
-        "blocks": blocks,
-    }
+    return blocks
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Random parameters drawn directly on ``gen.device`` in the config's
+    dtype (a full-width bf16 model never needs an fp32 copy; the MoE
+    router is fp32, as in JAX)."""
+    _check_family(cfg)
+    dtype, dev = DTYPES[cfg.dtype], gen.device
+    d = cfg.d_model
+    out_dim = cfg.num_classes or cfg.vocab_size
+    p = {"embed": normal(gen, (cfg.vocab_size, d), dtype, 0.02),
+         "final_norm": torch.ones(d, dtype=dtype, device=dev),
+         "head": dense_params(gen, d, out_dim, dtype)}
+    n_dense = 0 if _is_rwkv(cfg) else cfg.first_dense_layers
+    if n_dense:
+        p["dense_blocks"] = _blocks(gen, cfg, dtype, n_dense, moe=False)
+    p["blocks"] = _blocks(gen, cfg, dtype, cfg.num_layers - n_dense,
+                          moe=cfg.is_moe)
+    return p
 
 
 def _num_layers(params: Params) -> int:
@@ -151,36 +183,59 @@ def _rwkv_train_body(cfg: ModelConfig, lp: Params, x):
     return x + out
 
 
+def _mlp(cfg: ModelConfig, lp: Params, h, *, dropless: bool = False):
+    """The block's MLP on h: (y, the MoE load-balance loss, or None for a
+    dense MLP)."""
+    if "moe" in lp:
+        return moe_mod.moe_forward(cfg, lp["moe"], h, dropless=dropless)
+    return swiglu(lp["mlp"], h), None
+
+
 def _attn_body(cfg: ModelConfig, lp: Params, x, positions, causal: bool):
+    """One attention block, differentiable: (x, its MoE aux loss; 0 for a
+    dense MLP)."""
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-    x = x + attn_forward(cfg, lp["attn"], h, positions, causal=causal)
+    if cfg.use_mla:
+        a, _ = mla_mod.mla_forward(cfg, lp["attn"], h, positions,
+                                   causal=causal)
+    else:
+        a = attn_forward(cfg, lp["attn"], h, positions, causal=causal)
+    x = x + a
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + swiglu(lp["mlp"], h)
+    y, aux = _mlp(cfg, lp, h)
+    if aux is None:
+        aux = x.new_zeros((), dtype=torch.float32)
+    return x + y, aux
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
             remat: bool = False):
-    """Full-sequence hidden states [B,T,D] (+ aux dict), differentiable.
-    ``remat`` recomputes each layer in the backward pass (a per-layer
+    """Full-sequence hidden states [B,T,D] (+ aux dict: ``moe_aux``, the
+    MoE layers' load-balance losses summed), differentiable. ``remat``
+    recomputes each layer in the backward pass (a per-layer
     ``torch.utils.checkpoint``) instead of keeping its activations."""
     _check_family(cfg)
     x = _embed_in(params, batch)
+    aux = torch.zeros((), device=x.device)
     if _is_rwkv(cfg):
         def body(lp, x):
-            return _rwkv_train_body(cfg, lp, x)
+            return _rwkv_train_body(cfg, lp, x), torch.zeros((),
+                                                             device=x.device)
     else:
         positions = torch.arange(x.shape[1], device=x.device)
 
         def body(lp, x):
             return _attn_body(cfg, lp, x, positions, not cfg.is_encoder)
-    for lp in unstack(params["blocks"]):
-        if remat:
-            x = checkpoint(body, lp, x, use_reentrant=False,
-                           preserve_rng_state=False)
-        else:
-            x = body(lp, x)
+    for group, _ in STACKS:
+        for lp in unstack(params[group]) if group in params else ():
+            if remat:
+                x, a = checkpoint(body, lp, x, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                x, a = body(lp, x)
+            aux = aux + a
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x, {"moe_aux": torch.zeros((), device=x.device)}
+    return x, {"moe_aux": aux}
 
 
 # --------------------------------------------------------------------------
@@ -252,8 +307,10 @@ def _head_logits(params: Params, x_last):
 
 def prefill(cfg: ModelConfig, params: Params, batch: Batch):
     """Run the full prompt; return (last-position logits [B, V] fp32,
-    cache {"main": {"k", "v": [L, B, T, K, hd]}}, or {"rwkv": state} for
-    RWKV6)."""
+    cache). The cache is {"main": {"k", "v": [L, B, T, K, hd]}} (MLA:
+    {"c_kv" [L, B, T, r], "k_rope" [L, B, T, dr]}), with ``"dense"``
+    beside ``"main"`` for the first dense-MLP layers; for RWKV6
+    {"rwkv": state}. MoE runs dropless."""
     _check_family(cfg)
     x = _embed_in(params, batch)
     if _is_rwkv(cfg):
@@ -262,39 +319,56 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch):
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, -1]), {"rwkv": state}
     positions = torch.arange(x.shape[1], device=x.device)
-    ks, vs = [], []
-    for lp in unstack(params["blocks"]):
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        a, (k, v) = attn_prefill(cfg, lp["attn"], h, positions)
-        ks.append(k)
-        vs.append(v)
-        x = x + a
-        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + swiglu(lp["mlp"], h)
+    cache = {}
+    for group, name in STACKS:
+        if group not in params:
+            continue
+        kv: dict[str, list] = {}
+        for lp in unstack(params[group]):
+            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            if cfg.use_mla:
+                a, (c_kv, k_r) = mla_mod.mla_forward(cfg, lp["attn"], h,
+                                                     positions)
+                entries = {"c_kv": c_kv, "k_rope": k_r}
+            else:
+                a, (k, v) = attn_prefill(cfg, lp["attn"], h, positions)
+                entries = {"k": k, "v": v}
+            for key, t in entries.items():
+                kv.setdefault(key, []).append(t)
+            x = x + a
+            h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+            x = x + _mlp(cfg, lp, h, dropless=True)[0]
+        cache[name] = {key: torch.stack(ts) for key, ts in kv.items()}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    cache = {"main": {"k": torch.stack(ks), "v": torch.stack(vs)}}
     return _head_logits(params, x[:, -1]), cache
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device = "cuda"):
     """Zeroed serving cache {"main": {"k", "v": [L, B, slots, K, hd]}} in
-    the config's dtype (``slots = min(max_len, window)`` under SWA); for
-    RWKV6 the zeroed fp32 recurrent state {"rwkv": ...}, whatever
-    ``max_len``."""
+    the config's dtype (``slots = min(max_len, window)`` under SWA; MLA:
+    {"c_kv", "k_rope"} of ``max_len`` slots), with ``"dense"`` beside
+    ``"main"`` for the first dense-MLP layers; for RWKV6 the zeroed fp32
+    recurrent state {"rwkv": ...}, whatever ``max_len``."""
     _check_family(cfg)
+    dev = resolve_device(device)
     if _is_rwkv(cfg):
-        return {"rwkv": rwkv.rwkv6_state(cfg, batch,
-                                         device=resolve_device(device))}
-    return {"main": make_kv_cache(cfg, batch, max_len, DTYPES[cfg.dtype],
-                                  device=resolve_device(device))}
+        return {"rwkv": rwkv.rwkv6_state(cfg, batch, device=dev)}
+    mk = mla_mod.make_mla_cache if cfg.use_mla else make_kv_cache
+    n_dense, dtype = cfg.first_dense_layers, DTYPES[cfg.dtype]
+    cache = {"main": mk(cfg, batch, max_len, dtype,
+                        layers=cfg.num_layers - n_dense, device=dev)}
+    if n_dense:
+        cache["dense"] = mk(cfg, batch, max_len, dtype, layers=n_dense,
+                            device=dev)
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
     """One new token. token: [B] int (on the params' device, or host
     ints); pos: absolute position of the token. Writes its keys and values
-    (RWKV6: the new recurrent state) into ``cache`` in place; returns
-    (logits [B, V] fp32, cache)."""
+    (MLA: its latent and rope key; RWKV6: the new recurrent state) into
+    ``cache`` in place; returns (logits [B, V] fp32, cache)."""
     _check_family(cfg)
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
@@ -307,16 +381,21 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
         x, _ = _run_rwkv_stack(cfg, params, x, cache["rwkv"])
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, 0]), cache
-    kc, vc = cache["main"]["k"], cache["main"]["v"]
-    positions, kv_len = decode_inputs(cfg, pos, x.shape[0], kc.shape[2],
-                                      kc.device)
-    for lp, kl, vl in zip(unstack(params["blocks"]), kc.unbind(0),
-                          vc.unbind(0)):
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        a, _, _ = attn_decode(cfg, lp["attn"], h, kl, vl, pos, positions,
-                              kv_len)
-        x = x + a
-        h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-        x = x + swiglu(lp["mlp"], h)
+    slots = next(iter(cache["main"].values())).shape[2]
+    positions, kv_len = decode_inputs(cfg, pos, x.shape[0], slots, x.device)
+    for group, name in STACKS:
+        if name not in cache:
+            continue
+        for lp, lc in zip(unstack(params[group]), unstack(cache[name])):
+            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+            if cfg.use_mla:
+                a, _, _ = mla_mod.mla_decode(cfg, lp["attn"], h, lc["c_kv"],
+                                             lc["k_rope"], pos, positions)
+            else:
+                a, _, _ = attn_decode(cfg, lp["attn"], h, lc["k"], lc["v"],
+                                      pos, positions, kv_len)
+            x = x + a
+            h = rms_norm(x, lp["norm2"], cfg.norm_eps)
+            x = x + _mlp(cfg, lp, h, dropless=True)[0]
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _head_logits(params, x[:, 0]), cache

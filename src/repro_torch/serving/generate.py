@@ -26,18 +26,21 @@ def _pick(logits: torch.Tensor):
 
 def graft(cache: dict, pcache: dict) -> dict:
     """Copy a prefill's cache, covering positions [0, t), into a serving
-    cache from ``make_cache`` (under SWA with t > window the prefill
+    cache from ``make_cache``, along the slot axis of every leaf: the
+    ``"main"`` and ``"dense"`` stacks' keys and values, or MLA's latent
+    ``c_kv`` and ``k_rope`` (under SWA with t > window the prefill
     returns the whole ring, already rolled, and is taken as it is). An
     RWKV6 state has the same shape in both and is taken as it is."""
     if "rwkv" in pcache:
         cache["rwkv"] = pcache["rwkv"]
         return cache
-    for name, src in pcache["main"].items():
-        dst = cache["main"][name]
-        if dst.shape == src.shape:
-            cache["main"][name] = src
-        else:
-            dst[:, :, :src.shape[2]] = src
+    for group, leaves in pcache.items():
+        for name, src in leaves.items():
+            dst = cache[group][name]
+            if dst.shape == src.shape:
+                cache[group][name] = src
+            else:
+                dst[:, :, :src.shape[2]] = src
     return cache
 
 

@@ -27,12 +27,12 @@ def value_and_grad(cfg: ModelConfig, params, batch, *, remat: bool = True):
     of ``params``, in a tree of the same structure.
 
     Autograd follows detached aliases of the leaves (``params`` is not
-    marked), the stacked ``[L, ...]`` blocks as one alias per layer. The
-    moment a leaf's gradient is complete, a hook copies it into its
-    slice of ``grads`` (allocated up front) and drops it: the backward
-    holds ``grads`` and the gradients of about one layer, never the
-    per-layer pieces of every leaf beside their stack. A leaf that gets
-    no gradient raises."""
+    marked), the stacked ``[L, ...]`` blocks and dense blocks as one
+    alias per layer. The moment a leaf's gradient is complete, a hook
+    copies it into its slice of ``grads`` (allocated up front) and drops
+    it: the backward holds ``grads`` and the gradients of about one
+    layer, never the per-layer pieces of every leaf beside their stack.
+    A leaf that gets no gradient raises."""
     grads = tree_map(torch.empty_like, params)
     made, done = [], []
 
@@ -49,7 +49,8 @@ def value_and_grad(cfg: ModelConfig, params, batch, *, remat: bool = True):
         return leaf
 
     tree = {k: ([tree_map(follow, lp, lg) for lp, lg in
-                 zip(unstack(v), unstack(grads[k]))] if k == "blocks"
+                 zip(unstack(v), unstack(grads[k]))]
+                if k in ("dense_blocks", "blocks")
                 else tree_map(follow, v, grads[k]))
             for k, v in params.items()}
     loss, metrics = loss_fn(cfg, tree, batch, remat=remat)

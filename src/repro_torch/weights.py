@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.tree import tree_map
 
 
 def _leaf_to_torch(a: Any, device: torch.device,
@@ -40,12 +39,27 @@ def _leaf_to_torch(a: Any, device: torch.device,
     return t.to(device)
 
 
+# subtrees JAX keeps in fp32 whatever the model's dtype: the MoE router
+# (``repro.models.moe.moe_params``); a recast leaves them as they are
+KEEP_DTYPE = ("router",)
+
+
 def params_from_jax(tree: Any, device: str | torch.device = "cuda",
                     dtype: torch.dtype | None = None) -> Any:
     """Numpy pytree -> the same pytree of torch tensors on ``device``;
-    ``dtype`` (if given) recasts the floating-point leaves."""
+    ``dtype`` (if given) recasts the floating-point leaves, except those
+    under a key of ``KEEP_DTYPE``."""
     dev = resolve_device(device)
-    return tree_map(lambda a: _leaf_to_torch(a, dev, dtype), tree)
+
+    def walk(t: Any, dt: torch.dtype | None) -> Any:
+        if isinstance(t, dict):
+            return {k: walk(v, None if k in KEEP_DTYPE else dt)
+                    for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, dt) for v in t)
+        return _leaf_to_torch(t, dev, dt)
+
+    return walk(tree, dtype)
 
 
 def opt_state_from_jax(state: Any, device: str | torch.device = "cuda"

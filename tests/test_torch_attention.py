@@ -44,6 +44,9 @@ ATTN_CASES = [  # (b, t, h, kh, hd, causal, window)
     (1, 96, 8, 2, 64, True, 0),       # GQA, group of 4
     (2, 64, 8, 1, 128, True, 32),     # sliding window, MQA
     (1, 64, 4, 2, 64, False, 0),      # non-causal
+    (1, 64, 8, 2, 80, True, 0),       # hd 80 (h2o-danube-1.8b), group of 4
+    (2, 64, 4, 4, 80, True, 32),      # hd 80, sliding window
+    (1, 64, 14, 2, 64, True, 0),      # a group of 7 (qwen2-7b)
 ]
 
 
@@ -157,6 +160,10 @@ def test_bf16_kernel_numerics_match_jax(b, t, h, kh, hd, causal, window):
     (2, 77, 4, 3, 64, torch.bfloat16),      # ragged rows, hd 64
     (10, 48, 4, 8, 128, torch.float32),
     (1, 130, 2, 4, 64, torch.float32),
+    (8, 512, 8, 4, 80, torch.bfloat16),     # h2o-danube-1.8b, hd 80
+    (1, 4608, 8, 4, 80, torch.bfloat16),    # past its window of 4096
+    (2, 77, 2, 7, 80, torch.float32),
+    (8, 48, 4, 7, 128, torch.bfloat16),     # qwen2-7b's group of 7
 ])
 def test_flash_plan_covers_the_rows_within_shared_memory(b, t, kh, g, hd,
                                                          dtype):

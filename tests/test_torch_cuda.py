@@ -346,6 +346,15 @@ def test_select_kernel_one_launch_and_limits(dev):
     (2, 1100, 32, 4, 128, True, 0, torch.bfloat16),  # T*G % 64 = 32
     (4, 600, 32, 4, 128, False, 100, torch.bfloat16),
     (8, 300, 16, 2, 64, True, 0, torch.bfloat16),
+    # hd 80 (h2o-danube-1.8b: 32 heads over 8), staged at 128
+    (2, 300, 32, 8, 80, True, 0, torch.bfloat16),
+    (1, 700, 32, 8, 80, True, 256, torch.bfloat16),  # window, ragged
+    (2, 77, 32, 8, 80, True, 0, torch.float32),
+    (1, 130, 8, 2, 80, False, 24, torch.float32),
+    # a group of 7 (qwen2-7b: 28 heads over 4): T*G not a multiple of 64
+    (2, 200, 28, 4, 128, True, 0, torch.bfloat16),
+    (1, 130, 28, 4, 128, True, 0, torch.float32),
+    (1, 100, 14, 2, 80, False, 24, torch.bfloat16),  # G = 7 at hd 80
 ])
 def test_flash_kernel_matches_plain(dev, b, t, h, kh, hd, causal, window,
                                     dtype):
@@ -470,6 +479,14 @@ def test_maxconf_and_gate_score_run_one_kernel_and_allocate_once(dev, b, c):
     (2, 1000, 32, 4, 128, [1000, 999], torch.bfloat16),  # S % 32 != 0
     (2, 100, 12, 4, 64, [100, 50], torch.bfloat16),      # G = 3, padded
     (2, 300, 16, 1, 128, [300, 129], torch.float32),     # 138 KB shared
+    # hd 80 (h2o-danube-1.8b), rows staged at 128
+    (8, 544, 32, 8, 80, [543] * 8, torch.bfloat16),
+    (8, 544, 32, 8, 80, [1, 544, 100, 272, 400, 7, 543, 33], torch.float32),
+    (1, 4096, 32, 8, 80, [4096], torch.bfloat16),        # the full ring
+    (3, 77, 14, 2, 80, [1, 77, 40], torch.bfloat16),     # G = 7 at hd 80
+    # a group of 7 (qwen2-7b), padded to 8
+    (8, 544, 28, 4, 128, [543] * 8, torch.bfloat16),
+    (2, 300, 28, 4, 128, [300, 129], torch.float32),
 ])
 def test_decode_kernel_matches_plain(dev, b, s, h, kh, hd, lens, dtype):
     rng = np.random.default_rng(s + h)
@@ -508,6 +525,52 @@ def test_decode_kernel_reads_no_slot_past_kv_len(dev):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hd80_kernels_read_nothing_past_their_rows(dev, dtype):
+    """At hd 80 each row is 160 bytes, staged in rows of 128 columns:
+    flash's q, k and v and the decode caches are each the head of a
+    buffer whose tail is NaN, and the decode caches hold NaN past each
+    row's kv_len. A read of a padding column past a row's end, past T or
+    S, or past kv_len makes the output non-finite."""
+    rng = np.random.default_rng(80)
+
+    def nan_tailed(*shape):
+        size = int(np.prod(shape))
+        buf = torch.full((size + 8192,), float("nan"), dtype=dtype,
+                         device=dev)
+        buf[:size] = torch.from_numpy(
+            rng.standard_normal(size).astype(np.float32)).to(dev).to(dtype)
+        return buf[:size].view(*shape)
+
+    b, t, h, kh, hd = 1, 77, 14, 2, 80
+    q, k, v = nan_tailed(b, t, h, hd), nan_tailed(b, t, kh, hd), \
+        nan_tailed(b, t, kh, hd)
+    got = attention(q, k, v, causal=True)
+    want = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((got.float() - want).abs().max()) <= atol
+
+    b, s, h, kh = 2, 200, 16, 2
+    qd = nan_tailed(b, h, hd)
+    kc, vc = nan_tailed(b, s, kh, hd), nan_tailed(b, s, kh, hd)
+    lens = [70, 129]
+    for r, n in enumerate(lens):
+        kc[r, n:] = float("nan")
+        vc[r, n:] = float("nan")
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = decode_attn(qd, kc, vc, kv_len)
+    want = torch.stack([decode_attention_ref(
+        qd[r:r + 1].float(), kc[r:r + 1, :n].float(), vc[r:r + 1, :n].float(),
+        kv_len[r:r + 1]) for r, n in enumerate(lens)])[:, 0]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    rtol, atol = (2.0 ** -8, 1e-3) if dtype == torch.bfloat16 else (0.0, 1e-4)
+    assert bool(((got.float() - want).abs()
+                 <= rtol * want.abs() + atol).all())
 
 
 def test_wrappers_raise_on_what_kernels_do_not_take(dev):
