@@ -12,7 +12,8 @@ toolkit. In order, it
    widths (and a 16384-token cache for decode attention, and MDSA at [256,
    4096] x [4096, 4096]), the attention kernels also at h2o-danube-1.8b's
    hd 80 (flash at [1, 4608] past a window of 4096; decode over its
-   4096-slot ring) and qwen2-7b's group of 7, and times kernel, plain
+   4096-slot ring), qwen2-7b's group of 7 and zamba2-7b's shared block
+   (hd 112, MHA), and times kernel, plain
    version and (where one PyTorch call computes the same function) the
    library call with CUDA events, and every kernel's own device time and
    device kernels per call with torch.profiler (the wrapper's host work
@@ -27,7 +28,9 @@ toolkit. In order, it
    (yi-6b; qwen2-7b's QKV bias; deepseek-67b; h2o-danube, whose
    sliding-window ring buffer wraps, at hd 64 and widened to hd 80;
    deepseek-v2-lite's MLA and MoE after a dense layer; qwen3-moe's GQA
-   and MoE; rwkv6), then serves 256 requests through
+   and MoE; rwkv6; zamba2 in two groups at hd 64 and widened to hd 112;
+   pixtral on patch embeddings and tokens; hubert's prefill on frame
+   embeddings), then serves 256 requests through
    ``repro_torch.launch.serve`` with yi-6b at full width as the remote
    tier, and 64 more through an engine whose local tier is a
    ``FusedLocalHead`` over the same surrogate, asserting that every
@@ -49,18 +52,24 @@ toolkit. In order, it
    each freed before the next, with qwen2-7b (flash attention once per
    layer per window, a group of 7), h2o-danube-1.8b (hd 80 through both
    attention kernels; also 32 tokens for 1 prompt of 4608, past its
-   window of 4096: the prefill's rolled ring and decode over it) and
+   window of 4096: the prefill's rolled ring and decode over it),
    deepseek-v2-lite-16b (MLA and MoE in plain PyTorch: no attention
-   kernel launches);
+   kernel launches), zamba2-7b (both attention kernels at hd 112 once
+   per group of its shared block, the mamba2 layers in plain PyTorch)
+   and pixtral-12b (served on tokens; its prompts 256 patch embeddings,
+   then 256 tokens);
 8. frees the last of them, then holds the train path (``loss_fn``, every
    gradient leaf, the in-place AdamW step, a checkpoint round trip) on the
    card against the CPU on reduced yi-6b, h2o-danube (T = 128 past its
-   window of 64) and rwkv6 in fp32 (``train_parity``); trains yi-6b at full
-   width through ``repro_torch.launch.train``'s own functions (batch 8 x
-   128, remat): a gradient for every leaf, 6 steps of its batch stream and
-   6 of one fixed batch whose loss must fall, no kernel launched, step
-   time, tokens/s, MFU and peak memory (``train``); and the same for
-   rwkv6-1.6b at full width, 2 + 4 steps (``train_rwkv6``);
+   window of 64), rwkv6, zamba2 in two groups, pixtral (the loss over
+   the text only) and hubert (per-frame labels) in fp32
+   (``train_parity``); trains yi-6b at full width through
+   ``repro_torch.launch.train``'s own functions (batch 8 x 128, remat): a
+   gradient for every leaf, 6 steps of its batch stream and 6 of one
+   fixed batch whose loss must fall, no kernel launched, step time,
+   tokens/s, MFU and peak memory (``train``); and the same for
+   rwkv6-1.6b and hubert-xlarge (8 x 128 frame embeddings) at full
+   width, 2 + 4 steps (``train_rwkv6``, ``train_hubert``);
 9. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
@@ -96,8 +105,13 @@ CONF_TOL = 1e-4        # the gate kernels' confidence tolerance (conf <= 1)
 GEN_ROWS, GEN_PROMPT, GEN_TOKENS = 8, 512, 32   # the generate phase
 RWKV_ARCH = "rwkv6-1.6b"
 # the other archs served and generated at full width, one at a time
-FULL_WIDTH_ARCHS = ("qwen2-7b", "h2o-danube-1.8b", "deepseek-v2-lite-16b")
+FULL_WIDTH_ARCHS = ("qwen2-7b", "h2o-danube-1.8b", "deepseek-v2-lite-16b",
+                    "zamba2-7b", "pixtral-12b")
 LONG_PROMPT = 4608     # h2o-danube's 1-row generate, past its 4096 window
+VLM_ARCH, AUDIO_ARCH = "pixtral-12b", "hubert-xlarge"
+# pixtral's generate prompts: GEN_PATCHES patch embeddings, then
+# GEN_PROMPT - GEN_PATCHES tokens
+GEN_PATCHES = 256
 # The decode and prefill paths round their bf16 activations at different
 # places: their logits may differ by at most GEN_LOGIT_TOL[arch] (2.5x
 # the largest difference measured on an H100: yi-6b 0.10, rwkv6-1.6b
@@ -112,12 +126,26 @@ LONG_PROMPT = 4608     # h2o-danube's 1-row generate, past its 4096 window
 # (``moe_route_flips`` counts the (step, layer, row)s): its logits differ
 # by up to 1.10 (median 0.29 over the steps and rows, measured on an
 # H100). Its tokens are checked where the prefill's top-2 gap exceeds
-# 0.5 (25 of 256 measured, all agreeing), with a floor of a 16th
+# 0.5 (25 of 256 measured, all agreeing), with a floor of a 16th.
+# pixtral-12b's logits differ by up to 0.148 and zamba2-7b's by up to
+# 0.52 (median 0.42, at every 4th step: 81 layers of bf16 activations
+# feeding the fp32 mamba2 recurrence), with prefill top-2 gaps of median
+# 0.16-0.17 and 90th percentile 0.44-0.54 (measured on an H100).
+# zamba2's logit bound is 1.5, and its tokens are checked where the gap
+# exceeds 0.6, above any difference measured, with a floor of a 32nd.
+# Its prefill runs the per-token mamba2 loop (a few launches a token a
+# layer), so its fresh prefills are made at every PREFILL_STRIDE-th
+# step only
 GEN_LOGIT_TOL = {"yi-6b": 0.25, RWKV_ARCH: 0.6, "qwen2-7b": 0.25,
-                 "h2o-danube-1.8b": 0.25, "deepseek-v2-lite-16b": 2.75}
-DECISIVE_GAP = {"deepseek-v2-lite-16b": 0.5}
-CHECKED_FLOOR = {RWKV_ARCH: 32, "deepseek-v2-lite-16b": 16}
+                 "h2o-danube-1.8b": 0.25, "deepseek-v2-lite-16b": 2.75,
+                 "zamba2-7b": 1.5, VLM_ARCH: 0.375}
+DECISIVE_GAP = {"deepseek-v2-lite-16b": 0.5, "zamba2-7b": 0.6}
+CHECKED_FLOOR = {RWKV_ARCH: 32, "deepseek-v2-lite-16b": 16,
+                 "zamba2-7b": 32, VLM_ARCH: 16}
+PREFILL_STRIDE = {"zamba2-7b": 4}
 HD80 = "h2o-danube-1.8b@hd80"   # reduced h2o-danube widened to hd 80
+# reduced zamba2 in 2 groups of 2 mamba2 layers, at hd 64 and at hd 112
+ZAMBA2G, ZAMBA112 = "zamba2-7b@2groups", "zamba2-7b@hd112"
 # the RWKV6 scan against its plain version in f32 on the same inputs:
 # |got - want| <= RWKV_TOL * max|want| + 1e-5 (fp32 sums of M products in
 # another order and FMA contraction in the state update, a few ulp per
@@ -134,7 +162,8 @@ DECODE_TOL = {torch.bfloat16: (2.0 ** -8, 1e-3), torch.float32: (0.0, 1e-4)}
 # (rwkv6's leaves that feed r and k amplify the matmuls' fp32 rounding
 # about 1e4-fold, tests/test_torch_train.py); an AdamW step from the same
 # gradients within 1e-6 (params) and rtol 1e-5 (moments)
-GRAD_TOL = {"yi-6b": 1e-4, "h2o-danube-1.8b": 1e-4, RWKV_ARCH: 2e-3}
+GRAD_TOL = {"yi-6b": 1e-4, "h2o-danube-1.8b": 1e-4, RWKV_ARCH: 2e-3,
+            ZAMBA2G: 1e-4, VLM_ARCH: 1e-4, AUDIO_ARCH: 1e-4}
 TRAIN_SEQ = 128       # launcher defaults: batch 8 x 128 tokens, remat
 RESULTS: dict = {"phases": {}}
 
@@ -912,6 +941,19 @@ def kernel_phase(dev) -> dict:
         out[f"decode_qwen2_path_{str(dt).split('.')[-1]}"] = check_decode(
             dev, GEN_ROWS, s_path, dt, seed=34, lens=[s_path - 1] * GEN_ROWS,
             **qwen)
+    # zamba2-7b's shared attention block: hd 112, MHA (32 heads over 32,
+    # a group of 1): a serve window, the generate prefill; decode over
+    # the generate path's 544 slots
+    zamba = {"h": 32, "kh": 32, "hd": 112}
+    for b, t, dt in ((8, 48, torch.bfloat16),
+                     (GEN_ROWS, GEN_PROMPT, torch.bfloat16),
+                     (8, 48, torch.float32)):
+        out[f"flash_zamba2_{b}x{t}_{str(dt).split('.')[-1]}"] = check_flash(
+            dev, b, t, dt, seed=t + 112, **zamba)
+    for dt in (torch.bfloat16, torch.float32):
+        out[f"decode_zamba2_path_{str(dt).split('.')[-1]}"] = check_decode(
+            dev, GEN_ROWS, s_path, dt, seed=35, lens=[s_path - 1] * GEN_ROWS,
+            **zamba)
     out["maxconf_path"] = check_maxconf(dev, GEN_ROWS, 64000, seed=22)
     out["maxconf_152k"] = check_maxconf(dev, 32, 152064, seed=23, cold=True)
     # rwkv6-1.6b's time mix (32 heads of 64): the generate prefill, a
@@ -946,14 +988,19 @@ def cache_err(card: dict, cpu: dict) -> float:
 
 # the reduced configs the model phases hold card against CPU: each
 # family of the port (GQA; QKV bias; a group of 4 at hd 80 under a
-# window; MLA + MoE after a dense layer; GQA + MoE; RWKV6)
+# window; MLA + MoE after a dense layer; GQA + MoE; RWKV6; the zamba
+# hybrid in 2 groups at hd 64 and 112; the VLM on patch embeddings and
+# tokens; the encoder on frame embeddings, prefill only)
 REDUCED_ARCHS = ("yi-6b", "qwen2-7b", "deepseek-67b", HD80,
-                 "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", RWKV_ARCH)
+                 "deepseek-v2-lite-16b", "qwen3-moe-235b-a22b", RWKV_ARCH,
+                 ZAMBA2G, ZAMBA112, VLM_ARCH, AUDIO_ARCH)
 
 
 def reduced_config(arch: str):
     """``arch``'s reduced config; HD80 is reduced h2o-danube widened to
-    d_model 320 over 4 heads of 80 (2 KV heads), its window 64."""
+    d_model 320 over 4 heads of 80 (2 KV heads), its window 64; ZAMBA2G
+    and ZAMBA112 reduced zamba2 with 4 layers in 2 groups, at d_model
+    256 and 448 over 4 heads (hd 64 and 112, MHA)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -961,7 +1008,26 @@ def reduced_config(arch: str):
     if arch == HD80:
         cfg = dataclasses.replace(cfg, d_model=320, num_heads=4,
                                   num_kv_heads=2)
+    if arch in (ZAMBA2G, ZAMBA112):
+        cfg = dataclasses.replace(cfg, num_layers=4, shared_attn_period=2,
+                                  d_model=448 if arch == ZAMBA112 else 256)
     return cfg
+
+
+def prompt_batch(cfg, rng, b: int, t: int) -> dict:
+    """A numpy prompt of length t: tokens [b, t]; for a VLM t // 2 patch
+    embeddings, then t - t // 2 tokens; for an arch without a token
+    embedding, t frame embeddings."""
+    from repro_torch.models import transformer as T
+    patches = t // 2 if cfg.family == "vlm" else \
+        0 if T.takes_tokens(cfg) else t
+    out = {}
+    if patches:
+        out["embeds"] = rng.standard_normal(
+            (b, patches, cfg.d_model)).astype(np.float32)
+    if t > patches:
+        out["tokens"] = rng.integers(1, cfg.vocab_size, (b, t - patches))
+    return out
 
 
 def model_phase(dev) -> list[dict]:
@@ -973,11 +1039,11 @@ def model_phase(dev) -> list[dict]:
     for arch in REDUCED_ARCHS:
         cfg = reduced_config(arch)
         params = T.init_params(cfg, torch.Generator("cpu").manual_seed(3))
-        toks = np.random.default_rng(17).integers(1, cfg.vocab_size, (3, 40))
+        batch = prompt_batch(cfg, np.random.default_rng(17), 3, 40)
         with torch.no_grad():
-            lc, cc = T.prefill(cfg, params, {"tokens": toks})
+            lc, cc = T.prefill(cfg, params, batch)
             lg, cg = T.prefill(cfg, tree_map(lambda a: a.to(dev), params),
-                               {"tokens": toks})
+                               batch)
         torch.cuda.synchronize()
         err = max(float((lg.cpu() - lc).abs().max()), cache_err(cg, cc))
         row = {"phase": "model", "config": arch, "max_abs_err": err,
@@ -989,28 +1055,32 @@ def model_phase(dev) -> list[dict]:
 
 
 def decode_model_phase(dev) -> list[dict]:
-    """Every reduced family, and reduced h2o-danube at hd 64 (prompt 96 >
-    window 64: the ring buffer wraps, as it does at hd 80), MLA's latent
-    cache and RWKV6's state updated in place: prefill, then decode a
-    fixed token sequence (teacher-forced) on the card (kernels) and on
-    the CPU (plain versions), on the same weights; logits at every step
-    and the final caches agree within 1e-3."""
+    """Every reduced family that decodes (the encoder does not), and
+    reduced h2o-danube at hd 64 (prompt 96 > window 64: the ring buffer
+    wraps, as it does at hd 80), MLA's latent cache and the RWKV6 and
+    mamba2 states updated in place, the VLM after a prompt of patch
+    embeddings and tokens: prefill, then decode a fixed token sequence
+    (teacher-forced) on the card (kernels) and on the CPU (plain
+    versions), on the same weights; logits at every step and the final
+    caches agree within 1e-3."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.generate import graft
     from repro_torch.tree import tree_map
     rows = []
     for arch in REDUCED_ARCHS + ("h2o-danube-1.8b",):
         cfg = reduced_config(arch)
+        if not cfg.supports_decode:
+            continue
         params = T.init_params(cfg, torch.Generator("cpu").manual_seed(5))
         gparams = tree_map(lambda a: a.to(dev), params)
         rng = np.random.default_rng(24)
-        prompt = rng.integers(1, cfg.vocab_size, (3, 96))
+        prompt = prompt_batch(cfg, rng, 3, 96)
         forced = rng.integers(1, cfg.vocab_size, (3, 8))
         caches, logits = {}, {}
         for where, p in (("cpu", params), ("card", gparams)):
             d = "cpu" if where == "cpu" else dev
             with torch.no_grad():
-                _, pc = T.prefill(cfg, p, {"tokens": prompt})
+                _, pc = T.prefill(cfg, p, prompt)
                 cache = graft(T.make_cache(cfg, 3, 96 + 8, d), pc)
                 steps = []
                 for i in range(forced.shape[1]):
@@ -1021,10 +1091,11 @@ def decode_model_phase(dev) -> list[dict]:
         torch.cuda.synchronize()
         err = max(float((logits["card"] - logits["cpu"]).abs().max()),
                   cache_err(caches["card"], caches["cpu"]))
-        main = caches["card"].get("main")
+        kv = caches["card"].get("main", caches["card"].get("attn_k"))
+        if isinstance(kv, dict):
+            kv = next(iter(kv.values()))
         row = {"phase": "decode_model", "config": arch,
-               "slots": (None if main is None else
-                         int(next(iter(main.values())).shape[2])),
+               "slots": None if kv is None else int(kv.shape[2]),
                "steps": int(forced.shape[1]), "max_abs_err": err,
                "atol": 1e-3}
         log(row)
@@ -1104,6 +1175,7 @@ def build_serve_stack(dev, argv):
     shapes. Returns (args, stack, setup seconds)."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
 
     t0 = time.perf_counter()
     args = serve.parse_args(argv)
@@ -1116,19 +1188,29 @@ def build_serve_stack(dev, argv):
             {"tokens": stack.toks[:2] % stack.rcfg.vocab_size})
     rc = stack.rcfg
     assert logits.shape == (2, rc.vocab_size), logits.shape
-    assert {g: {k: tuple(a.shape) for k, a in leaves.items()}
-            for g, leaves in cache.items()} \
+    assert tree_map(lambda a: tuple(a.shape), cache) \
         == prefill_cache_shapes(rc, 2, stack.toks.shape[1])
-    assert all(bool(torch.isfinite(a).all()) for leaves in cache.values()
-               for a in leaves.values())
+    assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(cache))
     assert bool(torch.isfinite(logits).all()), "non-finite prefill logits"
     return args, stack, setup_s
 
 
 def prefill_cache_shapes(rc, b: int, t: int) -> dict:
     """The shapes of the cache a prefill of [b, t] tokens returns: the
-    RWKV6 state; per stack ("dense" for the first dense-MLP layers,
-    "main") the keys and values, or MLA's latent and rope key."""
+    RWKV6 state; zamba's mamba2 state and per-group keys and values; per
+    stack ("dense" for the first dense-MLP layers, "main") the keys and
+    values, or MLA's latent and rope key."""
+    if rc.block_type == "mamba2":
+        from repro_torch.models import mamba2 as m2
+        from repro_torch.models import transformer as T
+        d_inner, h, n = m2.dims(rc)
+        w, l_ = m2.CONV_W - 1, rc.num_layers
+        kv = (T.zamba_groups(rc)[0], b, t, rc.num_kv_heads,
+              rc.resolved_head_dim)
+        return {"mamba": {"ssm": (l_, b, h, m2.HEAD_P, n),
+                          "conv_x": (l_, b, w, d_inner),
+                          "conv_bc": (l_, b, w, 2 * n)},
+                "attn_k": kv, "attn_v": kv}
     if rc.block_type == "rwkv6":
         h, m = rc.d_model // rc.rwkv_head_dim, rc.rwkv_head_dim
         n = rc.num_layers
@@ -1223,11 +1305,22 @@ def serve_phase(dev, argv=SERVE_ARGV):
     return out, stack
 
 
+def attention_layers(rc) -> int:
+    """The layers that run an attention (or RWKV6 scan) kernel once per
+    prefill or decode step: zamba's groups (its shared block), else
+    every layer."""
+    from repro_torch.models import transformer as T
+    if rc.block_type == "mamba2":
+        return T.zamba_groups(rc)[0]
+    return rc.num_layers
+
+
 def remote_serve_phase(dev, arch: str, phase: str) -> tuple:
     """``--remote-arch arch`` at full width: the same requests and checks
     as the yi-6b serve run. Per remote window, every layer launches the
-    RWKV6 scan (rwkv6) or flash attention (GQA), or neither (MLA, whose
-    attention is plain PyTorch); decode attention never launches."""
+    RWKV6 scan (rwkv6) or flash attention (GQA; zamba: once per group,
+    its mamba2 layers none), or neither (MLA, whose attention is plain
+    PyTorch); decode attention never launches."""
     torch.cuda.reset_peak_memory_stats(dev)
     args, stack, setup_s = build_serve_stack(
         dev, SERVE_ARGV + ["--remote-arch", arch])
@@ -1238,8 +1331,8 @@ def remote_serve_phase(dev, arch: str, phase: str) -> tuple:
         "gate_score", "gate_select") + ((per_layer,) if per_layer else ()))
     counts = main["launches"]
     for name in ("rwkv6_scan", "flash_attention", "decode_attention"):
-        want = (rc.num_layers * main["remote_windows"] if name == per_layer
-                else 0)
+        want = (attention_layers(rc) * main["remote_windows"]
+                if name == per_layer else 0)
         assert counts[name] == want, \
             f"{name}: {counts[name]} launches, not {want}"
     out = {"setup_s": setup_s, "main": main, "remote": rc.name,
@@ -1346,19 +1439,21 @@ def route_flips(dec: list, pre: list) -> tuple[int, int]:
 
 
 def generate_phase(dev, stack, rows: int = GEN_ROWS,
-                   prompt_len: int = GEN_PROMPT) -> dict:
+                   prompt_len: int = GEN_PROMPT, patches: int = 0) -> dict:
     """Greedy generation with the serve stack's remote model at full width
-    on its weights: ``rows`` prompts of ``prompt_len`` tokens, GEN_TOKENS
-    new tokens.
+    on its weights: ``rows`` prompts of ``prompt_len`` positions (a VLM's
+    first ``patches`` of them patch embeddings from ``frontend_embeddings``,
+    the rest tokens), GEN_TOKENS new tokens.
     Asserts shapes, finite likelihoods in (0, 1], the kernels' launches
     on that run (MLA and the RWKV6 stack launch no attention kernel),
     that a teacher-forced replay of the decode loop on the generated
     tokens picks those same tokens (so what is timed and compared below
     is the main path's run), that each step's replayed decode logits lie
     within GEN_LOGIT_TOL[arch] of a fresh prefill's over the prompt and
-    the tokens before it, and that each decoded token is what that
-    prefill picks wherever its top-2 gap exceeds DECISIVE_GAP[arch] (the
-    tolerance where none is given).
+    the tokens before it (at every PREFILL_STRIDE[arch]-th step, default
+    every step), and that each decoded token is what that prefill picks
+    wherever its top-2 gap exceeds DECISIVE_GAP[arch] (the tolerance
+    where none is given).
     Times the decode steps of the replay, profiles one, and applies the
     2nd supervisor (seq_min_likelihood) to the answers."""
     from repro_torch.core.supervisors import seq_min_likelihood
@@ -1366,12 +1461,16 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.maxconf.ops import maxconf
     from repro_torch.models import transformer as T
+    from repro_torch.models.frontend import frontend_embeddings
     from repro_torch.serving.generate import graft, greedy_generate
     cfg, params = stack.rcfg, stack.rparams
-    n_l = cfg.num_layers
+    n_l, n_attn = cfg.num_layers, attention_layers(cfg)
     prompt = np.random.default_rng(25).integers(
-        1, cfg.vocab_size, (rows, prompt_len))
+        1, cfg.vocab_size, (rows, prompt_len - patches))
     batch = {"tokens": prompt}
+    if patches:
+        batch["embeds"] = frontend_embeddings(cfg, rows, patches, seed=25,
+                                              device=dev)
     greedy_generate(cfg, params, batch, 2)          # warm-up (cuBLAS plans)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1397,9 +1496,9 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
     elif cfg.use_mla:   # MLA's attention is plain PyTorch
         want = {"maxconf": GEN_TOKENS, "flash_attention": 0,
                 "decode_attention": 0}
-    else:
-        want = {"decode_attention": n_l * (GEN_TOKENS - 1),
-                "maxconf": GEN_TOKENS, "flash_attention": n_l}
+    else:   # zamba: its shared block's per group, mamba2 plain PyTorch
+        want = {"decode_attention": n_attn * (GEN_TOKENS - 1),
+                "maxconf": GEN_TOKENS, "flash_attention": n_attn}
     for name, n in want.items():
         assert counts[name] == n, f"{name}: {counts[name]} launches, not {n}"
 
@@ -1439,17 +1538,21 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
         profile = device_profile(one_step)
 
         # self-consistency: token i == argmax of a fresh prefill over
-        # prompt + tokens[:i] where that prefill's top-2 gap allows it
+        # prompt + tokens[:i] where that prefill's top-2 gap allows it (at
+        # every stride-th step)
+        stride = PREFILL_STRIDE.get(cfg.name, 1)
         seq = torch.as_tensor(prompt, device=dev)
         diffs, gaps, hits, pre_routes = [], [], [], []
         for i in range(GEN_TOKENS):
-            with recorded_routes() as routes:
-                lp, _ = T.prefill(cfg, params, {"tokens": seq})
+            routes = []
+            if i % stride == 0:
+                with recorded_routes() as routes:
+                    lp, _ = T.prefill(cfg, params, {**batch, "tokens": seq})
+                gaps.append(top2_gap(lp))
+                hits.append(lp.argmax(-1).to(torch.int32) == toks[:, i])
+                diffs.append((dec_logits[i] - lp).abs().amax(-1))  # per row
             pre_routes.append([r.view(rows, -1, r.shape[-1])[:, -1]
                                for r in routes])
-            gaps.append(top2_gap(lp))
-            hits.append(lp.argmax(-1).to(torch.int32) == toks[:, i])
-            diffs.append((dec_logits[i] - lp).abs().amax(-1))   # per row
             seq = torch.cat([seq, toks[:, i:i + 1].long()], dim=1)
         torch.cuda.synchronize(dev)
     diff = torch.stack(diffs).float().cpu()
@@ -1461,7 +1564,7 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
     decisive = DECISIVE_GAP.get(cfg.name, tol)
     ok = gap > decisive
     checked, agree = int(ok.sum()), int((ok & hit).sum())
-    pairs = rows * GEN_TOKENS
+    pairs = rows * len(gaps)
     gap_q = torch.quantile(gap.flatten().float().cpu(),
                            torch.tensor([0.1, 0.25, 0.5, 0.75, 0.9])).tolist()
     assert max_diff <= tol, \
@@ -1481,7 +1584,8 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
     if cfg.sliding_window:
         slots = min(slots, cfg.sliding_window)
     out = {"phase": "generate", "config": cfg.name, "layers": n_l,
-           "rows": rows, "prompt": prompt_len, "new_tokens": GEN_TOKENS,
+           "rows": rows, "prompt": prompt_len, "patches": patches,
+           "new_tokens": GEN_TOKENS,
            "wall_s": wall_s,
            "tokens_per_s_end_to_end": rows * GEN_TOKENS / wall_s,
            "decode_step_ms_median": med_ms,
@@ -1489,7 +1593,8 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
            "decode_tokens_per_s": rows / med_ms * 1e3,
            "peak_mem_gib": peak_gib, "launches": counts,
            "prefill_checked": checked, "prefill_agree": agree,
-           "pairs": pairs, "logit_tol": tol, "decisive_gap": decisive,
+           "pairs": pairs, "prefill_stride": stride, "logit_tol": tol,
+           "decisive_gap": decisive,
            "decode_vs_prefill_logit_diff_q50_90_100": diff_q,
            "moe_route_flips": flips, "moe_routes_compared": compared,
            "prefill_top2_gap_q10_25_50_75_90": gap_q,
@@ -1603,14 +1708,26 @@ def supervisor_phase(dev) -> dict:
 # train phases
 # ----------------------------------------------------------------------------
 
+def train_batch(cfg, rng, b: int, t: int) -> dict:
+    """A numpy train batch of length t (``prompt_batch``'s inputs), with
+    per-frame labels for an encoder."""
+    batch = prompt_batch(cfg, rng, b, t)
+    if cfg.is_encoder:
+        batch["labels"] = rng.integers(0, cfg.num_classes, (b, t))
+    return {k: v.astype(np.int32) if v.dtype.kind == "i" else v
+            for k, v in batch.items()}
+
+
 def train_parity_phase(dev) -> list[dict]:
-    """Reduced yi-6b, h2o-danube (T = 128: its window of 64 masks) and
-    rwkv6, fp32: ``loss_fn`` and every gradient leaf on the card against
-    the CPU on the same weights and tokens; one in-place AdamW step on the
+    """Reduced yi-6b, h2o-danube (T = 128: its window of 64 masks), rwkv6,
+    zamba2 in 2 groups, pixtral (64 patch embeddings, then 64 tokens:
+    the loss over the text only) and hubert (128 frames, per-frame
+    labels), fp32: ``loss_fn`` and every gradient leaf on the card
+    against the CPU on the same weights and inputs; one in-place AdamW
+    step on the
     card against the functional one (bit for bit) and against the CPU's
     from the same gradients; a checkpoint of (params, opt_state) saved
     and loaded on the card, bit for bit. No kernel launches."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import transformer as T
     from repro_torch.train import checkpoint as ck
@@ -1619,15 +1736,15 @@ def train_parity_phase(dev) -> list[dict]:
     from repro_torch.tree import tree_leaves, tree_map
     rows = []
     ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-    for arch in ("yi-6b", "h2o-danube-1.8b", RWKV_ARCH):
-        cfg = get_config(arch).reduced()
+    for arch in ("yi-6b", "h2o-danube-1.8b", RWKV_ARCH, ZAMBA2G, VLM_ARCH,
+                 AUDIO_ARCH):
+        cfg = reduced_config(arch)
         params = T.init_params(cfg, torch.Generator("cpu").manual_seed(11))
         gparams = tree_map(lambda a: a.to(dev), params)
-        toks = np.random.default_rng(31).integers(
-            1, cfg.vocab_size, (2, TRAIN_SEQ)).astype(np.int32)
+        batch = train_batch(cfg, np.random.default_rng(31), 2, TRAIN_SEQ)
         reset_launch_counts()
-        loss_c, met_c, g_c = value_and_grad(cfg, params, {"tokens": toks})
-        loss_g, met_g, g_g = value_and_grad(cfg, gparams, {"tokens": toks})
+        loss_c, met_c, g_c = value_and_grad(cfg, params, batch)
+        loss_g, met_g, g_g = value_and_grad(cfg, gparams, batch)
         torch.cuda.synchronize()
         launched = sum(launch_counts().values())
         assert launched == 0, f"{arch}: the train path launched kernels"
@@ -1670,8 +1787,8 @@ def train_parity_phase(dev) -> list[dict]:
             tree_leaves((gparams, istate["m"], istate["v"]))))
         assert exact and step == 1 and ls["step"] == 1, \
             f"{arch}: checkpoint round trip not exact"
-        row = {"phase": "train_parity", "config": cfg.name,
-               "tokens": list(toks.shape),
+        row = {"phase": "train_parity", "config": arch,
+               "batch": {k: list(v.shape) for k, v in batch.items()},
                "window": cfg.sliding_window or None,
                "loss_card": float(loss_g), "loss_cpu": float(loss_c),
                "loss_rel_err": loss_rel,
@@ -1919,7 +2036,8 @@ def main() -> int:
         free(dev)
         phases[f"serve_{arch}"], stack = remote_serve_phase(
             dev, arch, f"serve_{arch}")
-        phases[f"generate_{arch}"] = generate_phase(dev, stack)
+        phases[f"generate_{arch}"] = generate_phase(
+            dev, stack, patches=GEN_PATCHES if arch == VLM_ARCH else 0)
         if stack.rcfg.sliding_window:
             phases[f"generate_{arch}_long"] = generate_phase(
                 dev, stack, rows=1, prompt_len=LONG_PROMPT)
@@ -1933,6 +2051,9 @@ def main() -> int:
     lap("train")
     phases["train_rwkv6"] = train_phase(dev, RWKV_ARCH, 2, 4, "train_rwkv6")
     lap("train_rwkv6")
+    phases["train_hubert"] = train_phase(dev, AUDIO_ARCH, 2, 4,
+                                         "train_hubert")
+    lap("train_hubert")
     log({"phase": "seconds", **seconds})
     line = kernels_line(kern, serve, gen, rwkv_gen, sup)
     RESULTS["kernels"] = line["kernels"]

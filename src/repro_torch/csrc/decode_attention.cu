@@ -43,13 +43,15 @@
 // four keys at a time. One __syncthreads per tile (two for bf16: the
 // scores). Each block writes its unnormalised partial
 // (acc, m, l); a second pass merges the splits of each (batch, head) with
-// the same rescaling and divides by the sum. A head dim of 80 is staged
-// in rows of 128 (the swizzle stays within a row's 16 bf16 or 32 f32
-// chunks; the padding is never loaded nor read): its scores take 5
-// k-steps, and its P V gives each lane 4 columns, so lanes 20-31 sit that
-// loop out. Contract: 1 <= kv_len[b] (the decode path passes pos + 1);
-// kv_len = 0 writes 0, as the Pallas kernel does. S needs no alignment;
-// hd is 64, 80 or 128; G <= 16; inputs bf16 or f32, output in q's dtype.
+// the same rescaling and divides by the sum. A head dim of 80 or 112 is
+// staged in rows of 128 (the swizzle stays within a row's 16 bf16 or 32
+// f32 chunks; the padding is never loaded nor read): its scores take 5
+// or 7 k-steps, and its P V gives each lane 4 columns, so lanes 20-31 (at
+// hd 112 lanes 28-31) sit that loop out. A group of 1 (MHA) is padded to
+// 8 heads in the score MMA, whose columns 1-7 are zero. Contract:
+// 1 <= kv_len[b] (the decode path passes pos + 1); kv_len = 0 writes 0,
+// as the Pallas kernel does. S needs no alignment; hd is 64, 80, 112 or
+// 128; G <= 16; inputs bf16 or f32, output in q's dtype.
 
 #include "kernel_common.cuh"
 
@@ -70,7 +72,7 @@ template <typename T>
 constexpr bool kMma = sizeof(T) == 2;
 __host__ __device__ constexpr int mma_heads(int gp) { return gp > 8 ? gp : 8; }
 
-// the row width a head dim is staged at: 64 or 128 (80 -> 128)
+// the row width a head dim is staged at: 64 or 128 (80, 112 -> 128)
 __host__ __device__ constexpr int staged_hd(int hd) {
   return (hd + 63) / 64 * 64;
 }
@@ -246,7 +248,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < DPL; ++j) acc[i][j] = 0.f;
   }
   // the lane's output columns lie in 16-byte chunk vc at offset voff;
-  // at hd 80 lanes 20-31 own padding columns and take no part in P V
+  // at hd 80 (112) lanes 20-31 (28-31) own padding columns and take no
+  // part in P V
   const int vc = lane * DPL / VEC, voff = lane * DPL % VEC;
   const bool cols_ok = HD == HDS || lane * DPL < HD;
 
@@ -485,10 +488,12 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                smem, s)
   if (dtype == DT_F32) {
     if (HD == 128) return LAUNCH(float, 128);
+    if (HD == 112) return LAUNCH(float, 112);
     if (HD == 80) return LAUNCH(float, 80);
     return LAUNCH(float, 64);
   }
   if (HD == 128) return LAUNCH(__nv_bfloat16, 128);
+  if (HD == 112) return LAUNCH(__nv_bfloat16, 112);
   if (HD == 80) return LAUNCH(__nv_bfloat16, 80);
   return LAUNCH(__nv_bfloat16, 64);
 #undef LAUNCH

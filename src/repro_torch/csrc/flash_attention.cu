@@ -26,20 +26,21 @@
 // the next tile is in flight while this one is computed; a proxy fence
 // makes the copies visible to wgmma. Q, K and V tiles are stored as
 // 64-column atoms with the 128-byte swizzle that wgmma's shared-memory
-// descriptors read. A head dim of 80 is staged in the hd-128 layout (two
-// atoms): its columns 80-127 are zero-filled by cp.async, never read from
-// device memory. S = Q K^T is wgmma m64n64k16 with both operands K-major
-// from shared memory (ceil(hd/16) of them: at hd 80 the fifth reads
-// columns 64-79 of the second atom); the online softmax (base 2,
+// descriptors read. A head dim of 80 or 112 is staged in the hd-128
+// layout (two atoms): its columns 80-127 (112-127) are zero-filled by
+// cp.async, never read from device memory. S = Q K^T is wgmma m64n64k16
+// with both operands K-major from shared memory (ceil(hd/16) of them: at
+// hd 80 the fifth reads columns 64-79 of the second atom, at hd 112 the
+// fifth to seventh its columns 64-111); the online softmax (base 2,
 // running max and sum per row) runs on the fp32 accumulator registers; P
 // is rounded to bf16 in registers, where the accumulator's layout is
 // already the A operand's, and O += P V is wgmma m64n{64,128}k16 (the
 // staged width) with A from registers and V N-major (transposed) from
-// shared memory; at hd 80, O's columns 80-127 sum zeros and are never
-// stored, a 60% surplus of P V's MMA work (a 64 + 16 split would avoid
-// it). Rounding P to bf16 is the only rounding the fp32 version does not
-// have. Blocks are issued latest rows first, so the causal mask's longest
-// rows start first. Not yet done: TMA loads from a producer warp, and
+// shared memory; O's padding columns sum zeros and are never stored, a
+// surplus of P V's MMA work of 60% at hd 80 and 14% at hd 112 (a 64 + 16
+// or 64 + 48 split would avoid it). Rounding P to bf16 is the only
+// rounding the fp32 version does not have. Blocks are issued latest rows
+// first, so the causal mask's longest rows start first. Not yet done: TMA loads from a producer warp, and
 // overlapping one tile's softmax with the next tile's Q K^T (two S
 // register sets).
 //
@@ -188,7 +189,7 @@ constexpr int MB = 64;      // fused rows per block: one warpgroup's M
 constexpr int NB = 64;      // keys per tile
 constexpr int kStages = 2;  // K/V tiles in the ring
 
-// the width a head dim is staged at: whole 64-column atoms (80 -> 128)
+// the width a head dim is staged at: whole 64-column atoms (80, 112 -> 128)
 __host__ __device__ constexpr int staged_hd(int hd) {
   return (hd + 63) / 64 * 64;
 }
@@ -482,9 +483,9 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q [B, Tq, H, HD], k/v [B, S, KH, HD] -> o [B, Tq, H, HD], all contiguous
-// and of one dtype (DT_F32 / DT_BF16; bf16 16-byte aligned); HD is 64, 80
-// or 128; H % KH == 0. smem_bytes: the bf16 kernel's dynamic shared memory
-// as the wrapper's plan computed it (checked here); unused for f32.
+// and of one dtype (DT_F32 / DT_BF16; bf16 16-byte aligned); HD is 64, 80,
+// 112 or 128; H % KH == 0. smem_bytes: the bf16 kernel's dynamic shared
+// memory as the wrapper's plan computed it (checked here); unused for f32.
 extern "C" int flash_prefill(const void* q, const void* k, const void* v,
                              void* o, int dtype, int B, int Tq, int S, int H,
                              int KH, int HD, int causal, int window,
@@ -493,6 +494,8 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   if (dtype == DT_F32) {
     if (HD == 128)
       launch_f32<128>(q, k, v, o, B, Tq, S, H, KH, causal, window, scale, s);
+    else if (HD == 112)
+      launch_f32<112>(q, k, v, o, B, Tq, S, H, KH, causal, window, scale, s);
     else if (HD == 80)
       launch_f32<80>(q, k, v, o, B, Tq, S, H, KH, causal, window, scale, s);
     else
@@ -501,6 +504,9 @@ extern "C" int flash_prefill(const void* q, const void* k, const void* v,
   }
   if (HD == 128)
     return launch_bf16<128>(q, k, v, o, B, Tq, S, H, KH, causal, window,
+                            scale, smem_bytes, s);
+  if (HD == 112)
+    return launch_bf16<112>(q, k, v, o, B, Tq, S, H, KH, causal, window,
                             scale, smem_bytes, s);
   if (HD == 80)
     return launch_bf16<80>(q, k, v, o, B, Tq, S, H, KH, causal, window,

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 112, 128)
 MAX_GROUP = 16          # query heads per KV head (the kernel's registers)
 KEY_TILE = 32           # keys per staged tile; a split is a multiple
 STAGES = 4              # tiles in the cp.async ring
@@ -43,7 +43,7 @@ def _lib() -> ctypes.CDLL:
 
 def staged_head_dim(hd: int) -> int:
     """The row width the kernel stages a head dim at in shared memory:
-    64 or 128 (hd 80 -> 128; the padding is never loaded)."""
+    64 or 128 (hd 80 and 112 -> 128; the padding is never loaded)."""
     return -(-hd // 64) * 64
 
 
@@ -71,7 +71,7 @@ def splits(b: int, kh: int, s: int, g: int, hd: int,
     STAGES - 1 tiles in flight, the shared memory decides how many blocks
     an SM holds, and the S axis is cut so that the B*K pairs fill one
     wave of them (more splits would leave a partial second wave). The
-    rings hold rows at the staged width (hd 80 -> 128: the hd-128
+    rings hold rows at the staged width (hd 80, 112 -> 128: the hd-128
     figure). Raises once per plan if the shared memory exceeds what a
     block may use."""
     gp = 1 << max(0, g - 1).bit_length()
@@ -95,7 +95,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
     """q [B, H, hd]; caches [B, S, K, hd] (one dtype, f32 or bf16, CUDA,
-    contiguous; hd 64, 80 or 128; H % K == 0, H/K <= 16); kv_len [B]
+    contiguous; hd 64, 80, 112 or 128; H % K == 0, H/K <= 16); kv_len [B]
     int32 on the same device, each in [1, S] -> [B, H, hd] in q's
     dtype."""
     build.require_cuda(q, "q", DTYPE_CODES, 3)

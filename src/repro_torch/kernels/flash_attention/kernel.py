@@ -14,7 +14,7 @@ import torch
 from repro_torch.kernels import build
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 80, 128)
+HEAD_DIMS = (64, 80, 112, 128)
 MAX_SMEM_PER_BLOCK = 232_448   # the most shared memory one H100 block may use
 THREADS = 128
 
@@ -46,7 +46,7 @@ class FlashPlan(NamedTuple):
 
 def staged_head_dim(hd: int) -> int:
     """The width the bf16 kernel stages a head dim at, in shared memory:
-    whole 64-column swizzle atoms (hd 80 -> 128, its columns 80-127
+    whole 64-column swizzle atoms (hd 80 and 112 -> 128, the columns past hd
     zero-filled)."""
     return -(-hd // 64) * 64
 
@@ -76,7 +76,7 @@ def plan(b: int, t: int, kh: int, g: int, hd: int,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: [B, T, H, hd]; k, v: [B, S, K, hd] (one dtype, f32 or bf16,
-    CUDA, contiguous, bf16 16-byte aligned; hd 64, 80 or 128;
+    CUDA, contiguous, bf16 16-byte aligned; hd 64, 80, 112 or 128;
     H % K == 0) ->
     [B, T, H, hd]."""
     for name, x in (("q", q), ("k", k), ("v", v)):

@@ -6,10 +6,11 @@ The port of ``repro.launch.serve``: the same flags, plus ``--device
 fallback to the CPU).
 
 Local tier: a trained surrogate classifier. Remote tier: the model of
-``--remote-arch`` (yi-6b by default; any arch of the attention family —
-dense GQA, qwen2's QKV bias, h2o-danube's sliding window at head dim 80,
-deepseek's MLA and MoE, qwen3's MoE — or rwkv6-1.6b; not zamba2 and not
-the frontend archs), at full width unless ``--smoke``, reached through the
+``--remote-arch`` (yi-6b by default; any arch with a token embedding —
+the attention family, rwkv6-1.6b, the zamba2 hybrid and pixtral-12b,
+which serves the token task through a tokens prefill as JAX's does; an
+arch that takes embeddings only, hubert-xlarge, is refused), at full
+width unless ``--smoke``, reached through the
 fault-aware transport with a content-keyed response cache. The 1st-level
 supervisor escalates the lowest-confidence requests through the
 on-device confidence gate; the 2nd-level supervisor filters untrusted
@@ -159,9 +160,15 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("cost_budget is only enforced by the controller or the "
                  "offline sweep; add --adaptive and/or --calibrate")
     try:
+        rcfg = get_config(args.remote_arch)
         args.device = resolve_device(args.device)
-    except RuntimeError as e:
+    except (KeyError, RuntimeError) as e:
         ap.error(str(e))
+    if not T.takes_tokens(rcfg):
+        # JAX's remote tier fails at its prefill's input assertion
+        ap.error(f"--remote-arch {args.remote_arch}: the remote tier "
+                 f"serves a token task, and {rcfg.name} has no token "
+                 f"embedding (it takes frontend embeddings only)")
     args.serve_config = cfg
     return args
 

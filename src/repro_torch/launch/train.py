@@ -35,27 +35,44 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.frontend import frontend_embeddings
 from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 
 
 def make_batches(cfg: ModelConfig, batch: int, seq: int,
-                 seed: int = 0) -> Iterator[dict[str, np.ndarray]]:
-    """Synthetic LM batch stream for the smoke path: the token stream of
-    ``repro.launch.train.make_batches`` (one seed, the same tokens), as
-    host int32 arrays."""
-    if cfg.takes_embeddings:
-        raise NotImplementedError(f"{cfg.name}: embedding inputs come with "
-                                  f"the frontend families")
+                 seed: int = 0) -> Iterator[dict]:
+    """Synthetic LM / classification batch stream for the smoke path, as
+    ``repro.launch.train.make_batches`` draws it: one numpy generator
+    seeded by ``seed`` gives the tokens (host int32 [B, T]) and an
+    encoder's labels, in JAX's order, so they are JAX's to the bit; a
+    VLM batch holds ``seq // 2`` patch embeddings then ``seq // 2``
+    tokens, an audio batch ``seq`` frame embeddings (and labels for an
+    encoder). The embeddings are ``frontend_embeddings(cfg, batch, n,
+    seed)`` in every batch, as JAX's are (host tensors in the config's
+    dtype; JAX's bits differ, see ``models.frontend``)."""
     rng = np.random.default_rng(seed)
     while True:
-        yield {"tokens": rng.integers(1, cfg.vocab_size,
-                                      (batch, seq)).astype(np.int32)}
+        if cfg.family == "vlm":
+            half = seq // 2
+            yield {"embeds": frontend_embeddings(cfg, batch, half, seed,
+                                                 device="cpu"),
+                   "tokens": rng.integers(1, cfg.vocab_size,
+                                          (batch, half)).astype(np.int32)}
+        elif cfg.takes_embeddings:
+            b = {"embeds": frontend_embeddings(cfg, batch, seq, seed,
+                                               device="cpu")}
+            if cfg.is_encoder:
+                b["labels"] = rng.integers(0, cfg.num_classes,
+                                           (batch, seq)).astype(np.int32)
+            yield b
+        else:
+            yield {"tokens": rng.integers(1, cfg.vocab_size,
+                                          (batch, seq)).astype(np.int32)}
 
 
-def to_device(batch: dict[str, np.ndarray],
-              dev: torch.device) -> dict[str, torch.Tensor]:
+def to_device(batch: dict, dev: torch.device) -> dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
 
 

@@ -1,5 +1,7 @@
-"""The remote tier's model API, in PyTorch — the attention family (GQA or
-MLA attention, a dense or MoE MLP) and RWKV6.
+"""The remote tier's model API, in PyTorch — every family of
+``repro.models.transformer``: the attention family (GQA or MLA attention,
+a dense or MoE MLP), RWKV6, the zamba hybrid (mamba2 layers with a shared
+attention block) and the frontend archs (embedding inputs).
 
 Plain functions over the JAX package's parameter tree:
 
@@ -25,22 +27,34 @@ dense-MLP blocks, ``params["dense_blocks"]``, before the others, and its
 serving cache keeps them under ``"dense"`` beside ``"main"``. MLA caches
 its latent ``{"c_kv", "k_rope"}`` in place of ``{"k", "v"}``.
 
+A batch holds ``"tokens"`` [B, T], ``"embeds"`` [B, T, D] (a frontend's
+output, ``models.frontend``), or both (a VLM: the patch embeddings come
+first, then the text tokens' embeddings). Only token-taking archs and
+pixtral have an ``embed`` table; hubert (an encoder) has none and takes
+embeddings only. ``decode_step`` takes a [B] token or a [B, D]
+embedding.
+
 ``forward`` and ``loss_fn`` are the train path: functional, differentiable
 and free of kernels — attention through the plain ``gqa_attention``, MLA
-and MoE in plain PyTorch (JAX runs them in jnp) and the RWKV6 recurrence
-through its plain loop, as JAX computes them, with ``remat``
-checkpointing each layer (``torch.utils.checkpoint``, where JAX uses
-``jax.checkpoint``). ``forward`` returns the MoE layers' load-balance
-losses, summed, as ``moe_aux``, which ``loss_fn`` adds with
-``router_aux_loss_coef``. Cross-entropy goes in sequence chunks, each
-checkpointed, so the [B, T, V] logits live for one chunk at a time.
+and MoE in plain PyTorch (JAX runs them in jnp) and the RWKV6 and mamba2
+recurrences through their plain loops, as JAX computes them, with
+``remat`` checkpointing each layer (``torch.utils.checkpoint``, where JAX
+uses ``jax.checkpoint``; for zamba each mamba layer, as JAX does).
+``forward`` returns the MoE layers' load-balance losses, summed, as
+``moe_aux``, which ``loss_fn`` adds with ``router_aux_loss_coef``.
+Cross-entropy goes in sequence chunks, each checkpointed, so the [B, T,
+V] logits live for one chunk at a time. ``loss_fn`` is the next-token
+loss, over the text region only for a VLM batch, or the loss on
+``batch["labels"]`` (per-frame classification for encoders).
 
 ``prefill`` and ``decode_step`` are the serving path, through the Hopper
 kernels on a CUDA tensor (call them under ``torch.no_grad()``: the kernels
-have no backward); MLA and MoE launch none, and MoE runs dropless there.
-``decode_step`` writes the new token's keys and values (MLA: its latent
-and rope key) into the cache in place (JAX returns a new cache; the port
-returns the same one).
+have no backward); MLA, MoE and mamba2 launch none, and MoE runs dropless
+there. ``decode_step`` writes the new token's keys and values (MLA: its
+latent and rope key; RWKV6 and mamba2: the recurrent state) into the
+cache in place (JAX returns a new cache; the port returns the same one).
+``prefill`` is causal for every arch, the encoder too, as JAX's is
+(``forward`` is bidirectional for an encoder).
 
 RWKV6 (``block_type == "rwkv6"``) keeps the recurrent state
 ``{"rwkv": {"wkv" [L,B,H,M,M], "tm_prev", "cm_prev" [L,B,D]}}`` (fp32) of
@@ -49,9 +63,15 @@ stack from a zeroed state and returns it; ``decode_step`` runs the same
 stack on one token (the token shift then concatenates the stored previous
 token with an empty ``x[:, :-1]``, as JAX does) and updates the state in
 place, layer by layer; ``forward`` runs it from a zero state without
-keeping one. The mamba2 (zamba) and frontend families (with the VLM
-branch of ``loss_fn``), and ``decode_step`` on ``[B, D]`` embeddings, come
-with later slices of the port.
+keeping one.
+
+The zamba hybrid (``block_type == "mamba2"``) runs ``num_layers /
+shared_attn_period`` groups; each runs the shared attention block
+(``params["shared_attn"]``, one unstacked attention + swiglu block) first,
+then its ``shared_attn_period`` mamba2 layers (``params["blocks"]``:
+``norm`` and ``mixer``). Its cache is ``{"mamba": {"ssm", "conv_x",
+"conv_bc"}`` (fp32, ``models.mamba2.mamba2_state``), ``"attn_k"``,
+``"attn_v"`` [G, B, slots, K, hd]}``: one KV cache per group.
 """
 
 from __future__ import annotations
@@ -63,6 +83,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rwkv
@@ -83,51 +104,72 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 STACKS = (("dense_blocks", "dense"), ("blocks", "main"))
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.block_type == "mamba2" or cfg.takes_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: the mamba2 (zamba) and frontend families come "
-            f"with a later slice of the port")
-
-
 def _is_rwkv(cfg: ModelConfig) -> bool:
     return cfg.block_type == "rwkv6"
 
 
-def _blocks(gen: torch.Generator, cfg: ModelConfig, dtype, n: int,
+def _is_zamba(cfg: ModelConfig) -> bool:
+    return cfg.block_type == "mamba2"
+
+
+def takes_tokens(cfg: ModelConfig) -> bool:
+    """Whether the arch has a token embedding (``init_params``'s rule, as
+    JAX's: every arch without a frontend, and pixtral)."""
+    return not cfg.takes_embeddings or cfg.name.startswith("pixtral")
+
+
+def zamba_groups(cfg: ModelConfig) -> tuple[int, int]:
+    """(groups, mamba layers per group) of the zamba hybrid."""
+    period = cfg.shared_attn_period
+    if not period or cfg.num_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
+                         f"divide into groups of {period}")
+    return cfg.num_layers // period, period
+
+
+def _blocks(gen: torch.Generator, cfg: ModelConfig, dtype, stack: tuple,
             moe: bool) -> Params:
-    """``n`` stacked blocks: the norms, then RWKV6's mixes, or attention
-    (GQA or MLA) and a swiglu MLP or an MoE layer."""
+    """Blocks stacked ``stack`` (``(n,)``; ``()`` for one unstacked
+    block): the norms, then RWKV6's mixes, or attention (GQA or MLA) and a
+    swiglu MLP or an MoE layer."""
     d, dev = cfg.d_model, gen.device
-    blocks = {"norm1": torch.ones((n, d), dtype=dtype, device=dev),
-              "norm2": torch.ones((n, d), dtype=dtype, device=dev)}
+    blocks = {"norm1": torch.ones((*stack, d), dtype=dtype, device=dev),
+              "norm2": torch.ones((*stack, d), dtype=dtype, device=dev)}
     if _is_rwkv(cfg):
-        blocks.update(rwkv.rwkv6_params(gen, cfg, dtype, stack=(n,)))
+        blocks.update(rwkv.rwkv6_params(gen, cfg, dtype, stack=stack))
         return blocks
     attn = mla_mod.mla_params if cfg.use_mla else attention_params
-    blocks["attn"] = attn(gen, cfg, dtype, stack=(n,))
+    blocks["attn"] = attn(gen, cfg, dtype, stack=stack)
     if moe:
-        blocks["moe"] = moe_mod.moe_params(gen, cfg, dtype, stack=(n,))
+        blocks["moe"] = moe_mod.moe_params(gen, cfg, dtype, stack=stack)
     else:
-        blocks["mlp"] = swiglu_params(gen, d, cfg.d_ff, dtype, stack=(n,))
+        blocks["mlp"] = swiglu_params(gen, d, cfg.d_ff, dtype, stack=stack)
     return blocks
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters drawn directly on ``gen.device`` in the config's
     dtype (a full-width bf16 model never needs an fp32 copy; the MoE
-    router is fp32, as in JAX)."""
-    _check_family(cfg)
+    router and mamba2's per-head constants are fp32, as in JAX)."""
     dtype, dev = DTYPES[cfg.dtype], gen.device
     d = cfg.d_model
     out_dim = cfg.num_classes or cfg.vocab_size
-    p = {"embed": normal(gen, (cfg.vocab_size, d), dtype, 0.02),
-         "final_norm": torch.ones(d, dtype=dtype, device=dev),
-         "head": dense_params(gen, d, out_dim, dtype)}
+    p = {}
+    if takes_tokens(cfg):
+        p["embed"] = normal(gen, (cfg.vocab_size, d), dtype, 0.02)
+    p["final_norm"] = torch.ones(d, dtype=dtype, device=dev)
+    p["head"] = dense_params(gen, d, out_dim, dtype)
+    if _is_zamba(cfg):
+        n = cfg.num_layers
+        p["blocks"] = {"norm": torch.ones((n, d), dtype=dtype, device=dev),
+                       "mixer": m2.mamba2_params(gen, cfg, dtype,
+                                                 stack=(n,))}
+        p["shared_attn"] = _blocks(gen, cfg, dtype, (), moe=False)
+        return p
     n_dense = 0 if _is_rwkv(cfg) else cfg.first_dense_layers
     if n_dense:
-        p["dense_blocks"] = _blocks(gen, cfg, dtype, n_dense, moe=False)
-    p["blocks"] = _blocks(gen, cfg, dtype, cfg.num_layers - n_dense,
+        p["dense_blocks"] = _blocks(gen, cfg, dtype, (n_dense,), moe=False)
+    p["blocks"] = _blocks(gen, cfg, dtype, (cfg.num_layers - n_dense,),
                           moe=cfg.is_moe)
     return p
 
@@ -136,13 +178,26 @@ def _num_layers(params: Params) -> int:
     return params["blocks"]["norm1"].shape[0]
 
 
-def _embed_in(params: Params, batch: Batch) -> torch.Tensor:
+def _device(params: Params) -> torch.device:
+    return params["final_norm"].device
+
+
+def _embed_in(cfg: ModelConfig, params: Params, batch: Batch) -> torch.Tensor:
+    """The stack's input: the frontend embeddings, the tokens' embeddings,
+    or (a VLM) the embeddings first, then the tokens', along T."""
+    dev = _device(params)
+    parts = []
     if "embeds" in batch:
-        raise NotImplementedError("embedding inputs come with the frontend "
-                                  "families")
-    tokens = torch.as_tensor(batch["tokens"],
-                             device=params["embed"].device).long()
-    return params["embed"][tokens]
+        parts.append(torch.as_tensor(batch["embeds"], device=dev)
+                     .to(DTYPES[cfg.dtype]))
+    if "tokens" in batch and "embed" in params:
+        tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+        parts.append(params["embed"][tokens])
+    if not parts:
+        raise ValueError(f"{cfg.name}: the batch needs 'tokens' and/or "
+                         f"'embeds' (an arch without a token embedding "
+                         f"takes 'embeds' only)")
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
 
 
 def _rwkv_body(cfg: ModelConfig, lp: Params, x, st: Params):
@@ -208,24 +263,73 @@ def _attn_body(cfg: ModelConfig, lp: Params, x, positions, causal: bool):
     return x + y, aux
 
 
+def _mamba_body(cfg: ModelConfig, lp: Params, x, st: Params | None):
+    """One mamba2 layer (norm, mixer, residual). ``st``: the layer's
+    views of the stacked state, read and then overwritten in place with
+    the state the layer ends in; None runs from a zero state without
+    keeping one (differentiable: the train path)."""
+    h = rms_norm(x, lp["norm"], cfg.norm_eps)
+    out, new = m2.mamba2_forward(cfg, lp["mixer"], h, state=st)
+    if st is not None:
+        for key, t in new.items():
+            st[key].copy_(t)
+    return x + out
+
+
+def _run_zamba_stack(cfg: ModelConfig, params: Params, x, attn_fn,
+                     state: Params | None = None, *, remat: bool = False):
+    """The zamba groups in order: ``attn_fn(x, g)`` (group g's pass
+    through the shared attention block: full sequence, prefill or
+    decode), then the group's mamba2 layers. ``state``: the stacked
+    [L, ...] mamba2 state, updated in place layer by layer (None: a zero
+    state, not kept). ``remat`` checkpoints each mamba2 layer, as JAX
+    does (not the shared block). Returns x."""
+    g, per = zamba_groups(cfg)
+    layers = unstack(params["blocks"])
+    states = unstack(state) if state is not None else [None] * len(layers)
+    for gi in range(g):
+        x = attn_fn(x, gi)
+        for li in range(gi * per, (gi + 1) * per):
+            if remat:
+                x = checkpoint(_mamba_body, cfg, layers[li], x, states[li],
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = _mamba_body(cfg, layers[li], x, states[li])
+    return x
+
+
+def _shared_mlp(cfg: ModelConfig, sp: Params, x):
+    """The second half of the shared attention block: norm, swiglu,
+    residual."""
+    return x + swiglu(sp["mlp"], rms_norm(x, sp["norm2"], cfg.norm_eps))
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
             remat: bool = False):
     """Full-sequence hidden states [B,T,D] (+ aux dict: ``moe_aux``, the
-    MoE layers' load-balance losses summed), differentiable. ``remat``
-    recomputes each layer in the backward pass (a per-layer
-    ``torch.utils.checkpoint``) instead of keeping its activations."""
-    _check_family(cfg)
-    x = _embed_in(params, batch)
+    MoE layers' load-balance losses summed), differentiable; causal but
+    for an encoder. ``remat`` recomputes each layer in the backward pass
+    (a per-layer ``torch.utils.checkpoint``) instead of keeping its
+    activations."""
+    x = _embed_in(cfg, params, batch)
     aux = torch.zeros((), device=x.device)
+    positions = torch.arange(x.shape[1], device=x.device)
+    causal = not cfg.is_encoder
+    if _is_zamba(cfg):
+        sp = params["shared_attn"]
+        x = _run_zamba_stack(
+            cfg, params, x,
+            lambda x, _: _attn_body(cfg, sp, x, positions, causal)[0],
+            remat=remat)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return x, {"moe_aux": aux}
     if _is_rwkv(cfg):
         def body(lp, x):
             return _rwkv_train_body(cfg, lp, x), torch.zeros((),
                                                              device=x.device)
     else:
-        positions = torch.arange(x.shape[1], device=x.device)
-
         def body(lp, x):
-            return _attn_body(cfg, lp, x, positions, not cfg.is_encoder)
+            return _attn_body(cfg, lp, x, positions, causal)
     for group, _ in STACKS:
         for lp in unstack(params[group]) if group in params else ():
             if remat:
@@ -271,26 +375,37 @@ def _chunked_ce(head: Params, x, labels, mask, chunk: int = 512):
     return tot / cnt, ncorr / cnt
 
 
-def loss_fn(cfg: ModelConfig, params: Params, batch: Batch, *,
-            remat: bool = True):
-    """Next-token LM loss (decoders), or the loss on ``batch["labels"]``
-    (with ``batch["mask"]``, default all ones; per-frame classification
-    for encoders). Returns (loss, {"ce", "acc", "moe_aux"}), 0-d tensors
-    on the params' device."""
-    x, extras = forward(cfg, params, batch, remat=remat)
-    dev = x.device
+def _labels_and_mask(cfg: ModelConfig, batch: Batch, dev):
+    """The loss's [B, T] labels and mask, in JAX's branch order: an
+    encoder's ``labels`` (with ``mask``, default all ones); a decoder's
+    given ``labels``; a VLM batch's next tokens over the text region only
+    (the patch prefix and the last position masked); else the next
+    tokens (the last position masked, so T stays chunk-divisible)."""
     if cfg.is_encoder or "labels" in batch:
         labels = torch.as_tensor(batch["labels"], device=dev).long()
         mask = (torch.as_tensor(batch["mask"], device=dev).float()
                 if "mask" in batch else
                 torch.ones(labels.shape, device=dev))
-    else:
-        # next-token: shift left, zero-mask the final position so the
-        # time axis stays chunk-divisible
-        toks = torch.as_tensor(batch["tokens"], device=dev).long()
-        labels = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], 1)
-        mask = torch.ones(toks.shape, device=dev)
-        mask[:, -1] = 0.0
+        return labels, mask
+    toks = torch.as_tensor(batch["tokens"], device=dev).long()
+    labels = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], 1)
+    mask = torch.ones(toks.shape, device=dev)
+    mask[:, -1] = 0.0
+    if "embeds" in batch:
+        b, t_img = batch["embeds"].shape[:2]
+        labels = torch.cat([labels.new_zeros((b, t_img)), labels], 1)
+        mask = torch.cat([mask.new_zeros((b, t_img)), mask], 1)
+    return labels, mask
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: Batch, *,
+            remat: bool = True):
+    """Next-token LM loss (decoders; over the text region of a VLM batch),
+    or the loss on ``batch["labels"]`` (with ``batch["mask"]``, default
+    all ones; per-frame classification for encoders). Returns (loss,
+    {"ce", "acc", "moe_aux"}), 0-d tensors on the params' device."""
+    x, extras = forward(cfg, params, batch, remat=remat)
+    labels, mask = _labels_and_mask(cfg, batch, x.device)
     loss, acc = _chunked_ce(params["head"], x, labels, mask)
     total = loss + cfg.router_aux_loss_coef * extras["moe_aux"]
     return total, {"ce": loss, "acc": acc, "moe_aux": extras["moe_aux"]}
@@ -305,20 +420,44 @@ def _head_logits(params: Params, x_last):
     return dense(params["head"], x_last).float()
 
 
+def _zamba_prefill(cfg: ModelConfig, params: Params, x, positions):
+    """The zamba stack over the prompt from a zeroed state: (x, cache
+    {"mamba", "attn_k", "attn_v" [G, B, T, K, hd]})."""
+    sp = params["shared_attn"]
+    ks, vs = [], []
+
+    def attn(x, _):
+        h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+        a, (k, v) = attn_prefill(cfg, sp["attn"], h, positions)
+        ks.append(k)
+        vs.append(v)
+        return _shared_mlp(cfg, sp, x + a)
+
+    state = m2.mamba2_state(cfg, x.shape[0], device=x.device)
+    x = _run_zamba_stack(cfg, params, x, attn, state)
+    return x, {"mamba": state, "attn_k": torch.stack(ks),
+               "attn_v": torch.stack(vs)}
+
+
 def prefill(cfg: ModelConfig, params: Params, batch: Batch):
-    """Run the full prompt; return (last-position logits [B, V] fp32,
-    cache). The cache is {"main": {"k", "v": [L, B, T, K, hd]}} (MLA:
-    {"c_kv" [L, B, T, r], "k_rope" [L, B, T, dr]}), with ``"dense"``
-    beside ``"main"`` for the first dense-MLP layers; for RWKV6
-    {"rwkv": state}. MoE runs dropless."""
-    _check_family(cfg)
-    x = _embed_in(params, batch)
+    """Run the full prompt (causal, for an encoder too, as JAX's
+    prefill); return (last-position logits [B, V] fp32, cache). The cache
+    is {"main": {"k", "v": [L, B, T, K, hd]}} (MLA: {"c_kv" [L, B, T, r],
+    "k_rope" [L, B, T, dr]}), with ``"dense"`` beside ``"main"`` for the
+    first dense-MLP layers; for RWKV6 {"rwkv": state}; for zamba
+    {"mamba": state, "attn_k", "attn_v" [G, B, T, K, hd]}. MoE runs
+    dropless."""
+    x = _embed_in(cfg, params, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
     if _is_rwkv(cfg):
         x, state = _run_rwkv_stack(cfg, params, x, rwkv.rwkv6_state(
             cfg, x.shape[0], _num_layers(params), device=x.device))
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, -1]), {"rwkv": state}
-    positions = torch.arange(x.shape[1], device=x.device)
+    if _is_zamba(cfg):
+        x, cache = _zamba_prefill(cfg, params, x, positions)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return _head_logits(params, x[:, -1]), cache
     cache = {}
     for group, name in STACKS:
         if group not in params:
@@ -349,13 +488,21 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     the config's dtype (``slots = min(max_len, window)`` under SWA; MLA:
     {"c_kv", "k_rope"} of ``max_len`` slots), with ``"dense"`` beside
     ``"main"`` for the first dense-MLP layers; for RWKV6 the zeroed fp32
-    recurrent state {"rwkv": ...}, whatever ``max_len``."""
-    _check_family(cfg)
+    recurrent state {"rwkv": ...}, whatever ``max_len``; for zamba the
+    zeroed fp32 mamba2 state and a KV cache per group {"mamba": ...,
+    "attn_k", "attn_v": [G, B, max_len, K, hd]}."""
     dev = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
     if _is_rwkv(cfg):
         return {"rwkv": rwkv.rwkv6_state(cfg, batch, device=dev)}
+    if _is_zamba(cfg):
+        g, _ = zamba_groups(cfg)
+        shape = (g, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+        return {"mamba": m2.mamba2_state(cfg, batch, device=dev),
+                "attn_k": torch.zeros(shape, dtype=dtype, device=dev),
+                "attn_v": torch.zeros(shape, dtype=dtype, device=dev)}
     mk = mla_mod.make_mla_cache if cfg.use_mla else make_kv_cache
-    n_dense, dtype = cfg.first_dense_layers, DTYPES[cfg.dtype]
+    n_dense = cfg.first_dense_layers
     cache = {"main": mk(cfg, batch, max_len, dtype,
                         layers=cfg.num_layers - n_dense, device=dev)}
     if n_dense:
@@ -364,25 +511,49 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     return cache
 
 
+def _decode_input(cfg: ModelConfig, params: Params, token) -> torch.Tensor:
+    """A step's [B, 1, D] input: the embedding of a [B] token, or a
+    [B, D] embedding in the config's dtype."""
+    token = torch.as_tensor(token, device=_device(params))
+    if token.dim() == 1:
+        return params["embed"][token.long()][:, None, :]
+    if token.dim() == 2:
+        return token.to(DTYPES[cfg.dtype])[:, None, :]
+    raise ValueError(f"decode_step takes a [B] token or a [B, D] "
+                     f"embedding, not {tuple(token.shape)}")
+
+
 def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
     """One new token. token: [B] int (on the params' device, or host
-    ints); pos: absolute position of the token. Writes its keys and values
-    (MLA: its latent and rope key; RWKV6: the new recurrent state) into
-    ``cache`` in place; returns (logits [B, V] fp32, cache)."""
-    _check_family(cfg)
+    ints), or a [B, D] embedding; pos: absolute position of the token.
+    Writes its keys and values (MLA: its latent and rope key; RWKV6 and
+    mamba2: the new recurrent state) into ``cache`` in place; returns
+    (logits [B, V] fp32, cache)."""
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
-    token = torch.as_tensor(token, device=params["embed"].device)
-    if token.dim() != 1:
-        raise NotImplementedError("decode_step on [B, D] embeddings comes "
-                                  "with the frontend families")
-    x = params["embed"][token.long()][:, None, :]
+    x = _decode_input(cfg, params, token)
+    b = x.shape[0]
     if _is_rwkv(cfg):
         x, _ = _run_rwkv_stack(cfg, params, x, cache["rwkv"])
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, 0]), cache
+    if _is_zamba(cfg):
+        sp = params["shared_attn"]
+        positions, kv_len = decode_inputs(
+            cfg, pos, b, cache["attn_k"].shape[2], x.device)
+
+        def attn(x, gi):
+            h = rms_norm(x, sp["norm1"], cfg.norm_eps)
+            a, _, _ = attn_decode(cfg, sp["attn"], h, cache["attn_k"][gi],
+                                  cache["attn_v"][gi], pos, positions,
+                                  kv_len)
+            return _shared_mlp(cfg, sp, x + a)
+
+        x = _run_zamba_stack(cfg, params, x, attn, cache["mamba"])
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return _head_logits(params, x[:, 0]), cache
     slots = next(iter(cache["main"].values())).shape[2]
-    positions, kv_len = decode_inputs(cfg, pos, x.shape[0], slots, x.device)
+    positions, kv_len = decode_inputs(cfg, pos, b, slots, x.device)
     for group, name in STACKS:
         if name not in cache:
             continue

@@ -4,8 +4,9 @@ Returns per-token likelihoods of the chosen tokens so the sequence
 supervisors (``core.supervisors.seq_min_likelihood`` — the paper's QA
 reducer) apply directly: the generative analogue of the classification
 cascade. On CUDA tensors the prefill runs the flash-attention kernel,
-every decode step the decode-attention kernel once per layer (for RWKV6,
-the prefill and every step the RWKV6 scan kernel once per layer), and
+every decode step the decode-attention kernel once per layer (zamba: once
+per group, its mamba2 layers in plain PyTorch; for RWKV6, the prefill and
+every step the RWKV6 scan kernel once per layer), and
 each token is picked by the maxconf kernel (argmax and max-softmax in one
 pass over the vocabulary); the loop never synchronises with the host.
 """
@@ -26,38 +27,47 @@ def _pick(logits: torch.Tensor):
 
 def graft(cache: dict, pcache: dict) -> dict:
     """Copy a prefill's cache, covering positions [0, t), into a serving
-    cache from ``make_cache``, along the slot axis of every leaf: the
-    ``"main"`` and ``"dense"`` stacks' keys and values, or MLA's latent
-    ``c_kv`` and ``k_rope`` (under SWA with t > window the prefill
-    returns the whole ring, already rolled, and is taken as it is). An
-    RWKV6 state has the same shape in both and is taken as it is."""
-    if "rwkv" in pcache:
-        cache["rwkv"] = pcache["rwkv"]
-        return cache
-    for group, leaves in pcache.items():
-        for name, src in leaves.items():
-            dst = cache[group][name]
-            if dst.shape == src.shape:
-                cache[group][name] = src
-            else:
-                dst[:, :, :src.shape[2]] = src
+    cache from ``make_cache``, along the slot axis (dim 2) of every leaf
+    whose shape differs: the ``"main"`` and ``"dense"`` stacks' keys and
+    values, MLA's latent ``c_kv`` and ``k_rope``, or zamba's per-group
+    ``"attn_k"`` and ``"attn_v"`` (tensors at the top level). A group or
+    leaf of the same shape in both is taken as it is: a recurrent state
+    (RWKV6's, zamba's mamba2 state), and under SWA with t > window the
+    prefill's whole ring, already rolled."""
+    def put(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+        if dst.shape == src.shape:
+            return src
+        dst[:, :, :src.shape[2]] = src
+        return dst
+
+    for key, src in pcache.items():
+        dst = cache[key]
+        if not isinstance(src, dict):
+            cache[key] = put(dst, src)
+        elif all(dst[n].shape == leaf.shape for n, leaf in src.items()):
+            cache[key] = src
+        else:
+            for name, leaf in src.items():
+                dst[name] = put(dst[name], leaf)
     return cache
 
 
 @torch.no_grad()
 def greedy_generate(cfg: ModelConfig, params, prompt_batch: dict,
                     max_new_tokens: int):
-    """prompt_batch: {"tokens": [B, T]}. Runs on the params' device with a
-    cache of T + max_new_tokens slots (or the window, under SWA).
-    Returns (tokens [B, max_new_tokens] int32, likelihood
-    [B, max_new_tokens] f32), both on that device."""
-    if "tokens" not in prompt_batch:
-        raise NotImplementedError("generation from embeddings comes with "
-                                  "the frontend families")
-    b, t = prompt_batch["tokens"].shape
-    dev = params["embed"].device
-
+    """prompt_batch: {"tokens": [B, T]}, {"embeds": [B, T, D]}, or both
+    (a VLM: the embeddings first). Runs on the params' device with a
+    cache of T + max_new_tokens slots (or the window, under SWA), T the
+    whole prompt's length: decoding starts at position T. (JAX's
+    ``greedy_generate`` takes T from the tokens alone when a prompt has
+    both, so its decoding overwrites the patch prefix's slots; the port
+    does not follow it there.) Returns (tokens [B, max_new_tokens]
+    int32, likelihood [B, max_new_tokens] f32), both on that device."""
     logits, pcache = prefill(cfg, params, prompt_batch)
+    parts = [prompt_batch[k].shape[:2] for k in ("embeds", "tokens")
+             if k in prompt_batch]
+    b, t = parts[0][0], sum(n for _, n in parts)
+    dev = params["final_norm"].device
     cache = graft(make_cache(cfg, b, t + max_new_tokens, device=dev), pcache)
 
     tok, lik = _pick(logits)

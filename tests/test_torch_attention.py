@@ -47,6 +47,8 @@ ATTN_CASES = [  # (b, t, h, kh, hd, causal, window)
     (1, 64, 8, 2, 80, True, 0),       # hd 80 (h2o-danube-1.8b), group of 4
     (2, 64, 4, 4, 80, True, 32),      # hd 80, sliding window
     (1, 64, 14, 2, 64, True, 0),      # a group of 7 (qwen2-7b)
+    (1, 64, 4, 4, 112, True, 0),      # hd 112, MHA (zamba2-7b's shared block)
+    (2, 64, 8, 2, 112, True, 0),      # hd 112, group of 4
 ]
 
 
@@ -164,6 +166,10 @@ def test_bf16_kernel_numerics_match_jax(b, t, h, kh, hd, causal, window):
     (1, 4608, 8, 4, 80, torch.bfloat16),    # past its window of 4096
     (2, 77, 2, 7, 80, torch.float32),
     (8, 48, 4, 7, 128, torch.bfloat16),     # qwen2-7b's group of 7
+    (8, 48, 32, 1, 112, torch.bfloat16),    # zamba2-7b: hd 112, MHA
+    (8, 512, 32, 1, 112, torch.bfloat16),   # its generate prefill
+    (8, 48, 32, 1, 112, torch.float32),
+    (2, 77, 8, 4, 112, torch.bfloat16),     # hd 112, group of 4
 ])
 def test_flash_plan_covers_the_rows_within_shared_memory(b, t, kh, g, hd,
                                                          dtype):

@@ -109,6 +109,42 @@ def test_port_checkpoint_round_trip_and_treedef(trained, tmp_path):
             assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("arch", ["zamba2-7b", "hubert-xlarge"])
+def test_family_trees_carry_and_checkpoint_both_ways(arch, tmp_path):
+    """zamba2's tree (stacked ``blocks.norm``/``blocks.mixer.*``, the
+    unstacked ``shared_attn``) and hubert's (no ``embed``), parameters
+    and a JAX AdamW state after one step: carried by ``params_from_jax``
+    and ``opt_state_from_jax``, saved by either package and loaded by the
+    other, bit for bit, in JAX's leaf order and treedef."""
+    cfg = jax_get_config(arch).reduced()
+    jp = jT.init_params(cfg, jax.random.PRNGKey(6))
+    grads = jax.tree.map(lambda a: jnp.asarray(
+        np.random.default_rng(a.size).standard_normal(a.shape), a.dtype), jp)
+    jp, js, _ = jax.jit(lambda p, g, s: jopt.adamw_update(
+        jopt.AdamWConfig(), p, g, s))(jp, grads, jopt.init_opt_state(jp))
+    tree = (params_from_jax(jax.tree.map(np.asarray, jp), "cpu"),
+            opt_state_from_jax(jax.tree.map(np.asarray, js), "cpu"))
+    assert ("shared_attn" in tree[0]) == (arch == "zamba2-7b")
+    assert ("embed" in tree[0]) == (arch != "hubert-xlarge")
+    assert jax_treedef(tree) == str(jax.tree.flatten((jp, js))[1])
+    path = str(tmp_path / "port.msgpack")
+    ck.save_checkpoint(path, tree, step=9)
+    (rp, rs), step = jck.load_checkpoint(path, (jp, js))
+    assert step == 9 and int(rs["step"]) == 1
+    for want, got in zip(jax.tree.leaves((jp, js)),
+                         jax.tree.leaves((rp, rs))):
+        np.testing.assert_array_equal(bits(got), bits(want))
+    path = str(tmp_path / "jax.msgpack")
+    jck.save_checkpoint(path, (jp, js), step=10)
+    like = (tree[0], opt.init_opt_state(tree[0]))
+    (tp, ts), step = ck.load_checkpoint(path, like)
+    assert step == 10 and ts["step"] == 1
+    for want, got in zip(jax.tree.leaves((jp, js["m"], js["v"])),
+                         jax_leaves((tp, ts["m"], ts["v"]))):
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_array_equal(bits(got), bits(want))
+
+
 def test_load_checkpoint_checks_leaf_count_and_shapes(tmp_path):
     path = str(tmp_path / "c.msgpack")
     ck.save_checkpoint(path, {"a": torch.zeros(2, 3), "b": torch.ones(4)})

@@ -355,6 +355,12 @@ def test_select_kernel_one_launch_and_limits(dev):
     (2, 200, 28, 4, 128, True, 0, torch.bfloat16),
     (1, 130, 28, 4, 128, True, 0, torch.float32),
     (1, 100, 14, 2, 80, False, 24, torch.bfloat16),  # G = 7 at hd 80
+    # hd 112 (zamba2-7b's shared block: 32 heads, MHA), staged at 128
+    (8, 48, 32, 32, 112, True, 0, torch.bfloat16),   # a serve window
+    (8, 512, 32, 32, 112, True, 0, torch.bfloat16),  # the generate prefill
+    (2, 77, 32, 32, 112, True, 0, torch.float32),
+    (1, 300, 16, 4, 112, True, 64, torch.bfloat16),  # group of 4, window
+    (1, 130, 8, 2, 112, False, 0, torch.float32),    # group of 4
 ])
 def test_flash_kernel_matches_plain(dev, b, t, h, kh, hd, causal, window,
                                     dtype):
@@ -487,6 +493,11 @@ def test_maxconf_and_gate_score_run_one_kernel_and_allocate_once(dev, b, c):
     # a group of 7 (qwen2-7b), padded to 8
     (8, 544, 28, 4, 128, [543] * 8, torch.bfloat16),
     (2, 300, 28, 4, 128, [300, 129], torch.float32),
+    # hd 112 (zamba2-7b's shared block, MHA: a group of 1 padded to 8)
+    (8, 544, 32, 32, 112, [543] * 8, torch.bfloat16),
+    (8, 544, 32, 32, 112, [1, 544, 100, 272, 400, 7, 543, 33],
+     torch.float32),
+    (2, 300, 16, 4, 112, [300, 129], torch.bfloat16),    # group of 4
 ])
 def test_decode_kernel_matches_plain(dev, b, s, h, kh, hd, lens, dtype):
     rng = np.random.default_rng(s + h)
@@ -527,14 +538,14 @@ def test_decode_kernel_reads_no_slot_past_kv_len(dev):
     assert float((got - want).abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_hd80_kernels_read_nothing_past_their_rows(dev, dtype):
-    """At hd 80 each row is 160 bytes, staged in rows of 128 columns:
-    flash's q, k and v and the decode caches are each the head of a
-    buffer whose tail is NaN, and the decode caches hold NaN past each
-    row's kv_len. A read of a padding column past a row's end, past T or
-    S, or past kv_len makes the output non-finite."""
-    rng = np.random.default_rng(80)
+def padded_rows_read_nothing_past(dev, dtype, hd: int, groups) -> None:
+    """Flash's q, k and v and the decode caches at head dim ``hd`` (rows
+    staged wider) are each the head of a buffer whose tail is NaN, and
+    the decode caches hold NaN past each row's kv_len: a read of a
+    padding column past a row's end, past T or S, or past kv_len makes
+    the output non-finite. ``groups``: flash's and decode's (heads, KV
+    heads)."""
+    rng = np.random.default_rng(hd)
 
     def nan_tailed(*shape):
         size = int(np.prod(shape))
@@ -544,7 +555,8 @@ def test_hd80_kernels_read_nothing_past_their_rows(dev, dtype):
             rng.standard_normal(size).astype(np.float32)).to(dev).to(dtype)
         return buf[:size].view(*shape)
 
-    b, t, h, kh, hd = 1, 77, 14, 2, 80
+    (h, kh), (hd_h, hd_kh) = groups
+    b, t = 1, 77
     q, k, v = nan_tailed(b, t, h, hd), nan_tailed(b, t, kh, hd), \
         nan_tailed(b, t, kh, hd)
     got = attention(q, k, v, causal=True)
@@ -554,9 +566,9 @@ def test_hd80_kernels_read_nothing_past_their_rows(dev, dtype):
     atol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((got.float() - want).abs().max()) <= atol
 
-    b, s, h, kh = 2, 200, 16, 2
-    qd = nan_tailed(b, h, hd)
-    kc, vc = nan_tailed(b, s, kh, hd), nan_tailed(b, s, kh, hd)
+    b, s = 2, 200
+    qd = nan_tailed(b, hd_h, hd)
+    kc, vc = nan_tailed(b, s, hd_kh, hd), nan_tailed(b, s, hd_kh, hd)
     lens = [70, 129]
     for r, n in enumerate(lens):
         kc[r, n:] = float("nan")
@@ -571,6 +583,19 @@ def test_hd80_kernels_read_nothing_past_their_rows(dev, dtype):
     rtol, atol = (2.0 ** -8, 1e-3) if dtype == torch.bfloat16 else (0.0, 1e-4)
     assert bool(((got.float() - want).abs()
                  <= rtol * want.abs() + atol).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hd80_kernels_read_nothing_past_their_rows(dev, dtype):
+    """At hd 80 each row is 160 bytes, staged in rows of 128 columns."""
+    padded_rows_read_nothing_past(dev, dtype, 80, ((14, 2), (16, 2)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_hd112_kernels_read_nothing_past_their_rows(dev, dtype):
+    """At hd 112 each row is 224 bytes, staged in rows of 128 columns;
+    MHA (a group of 1) as zamba2-7b's shared block runs it."""
+    padded_rows_read_nothing_past(dev, dtype, 112, ((8, 8), (8, 8)))
 
 
 def test_wrappers_raise_on_what_kernels_do_not_take(dev):
@@ -911,7 +936,8 @@ def test_kernel_wrappers_refuse_inputs_that_need_a_gradient(dev):
     assert all(after[n] > before[n] for n in calls)
 
 
-@pytest.mark.parametrize("arch,tol", [("yi-6b", 1e-4), ("rwkv6-1.6b", 2e-3)])
+@pytest.mark.parametrize("arch,tol", [("yi-6b", 1e-4), ("rwkv6-1.6b", 2e-3),
+                                      ("zamba2-7b", 1e-4)])
 def test_reduced_train_step_on_the_card(dev, arch, tol):
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T

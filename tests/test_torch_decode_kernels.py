@@ -198,6 +198,8 @@ def to_torch(*arrays, dtype=torch.float32):
     (2, 32, 8, 80, (512, 37)),       # hd 80 (h2o-danube-1.8b)
     (2, 14, 2, 128, (300, 512)),     # a group of 7 (qwen2-7b)
     (1, 7, 1, 80, (129,)),           # G = 7 at hd 80
+    (2, 8, 8, 112, (512, 37)),       # hd 112, MHA (zamba2-7b)
+    (2, 16, 4, 112, (300, 512)),     # hd 112, group of 4
 ])
 def test_decode_ref_matches_jax_pallas_and_oracle(b, h, kh, hd, kv_len):
     s = 512                                # the Pallas kernel's S % 512
@@ -292,6 +294,9 @@ def test_decode_splits_cover_the_cache_in_whole_tiles(b, kh, s):
     (1, 8, 4096, 4, 80, 2),       # its 4096-slot ring at B = 1
     (3, 2, 77, 7, 80, 4),         # f32 at hd 80, G = 7
     (8, 4, 544, 7, 128, 2),       # qwen2-7b's group of 7
+    (8, 32, 544, 1, 112, 2),      # zamba2-7b's generate: hd 112, MHA
+    (8, 32, 544, 1, 112, 4),      # f32
+    (2, 4, 300, 4, 112, 2),       # hd 112, group of 4
 ])
 def test_decode_plan_keeps_bytes_in_flight(b, kh, s, g, hd, esz):
     """The ring holds >= 3 tiles, the shared memory fits a block, the SM's

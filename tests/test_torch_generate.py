@@ -203,10 +203,22 @@ def test_min_likelihood_reduces_generated_answers(model):
 
 
 def test_decode_step_refuses_embeddings_and_other_families():
+    """``decode_step`` takes a [B] token or a [B, D] embedding (as JAX's
+    does; the embedding of a token decodes as the token) and refuses any
+    other input, and the encoder (hubert) refuses to decode at all."""
     cfg = get_config("yi-6b").reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
-    cache = T.make_cache(cfg, 2, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="embeddings"):
-        T.decode_step(cfg, params, torch.zeros(2, cfg.d_model), cache, 0)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        T.make_cache(get_config("zamba2-7b").reduced(), 2, 8, "cpu")
+    tok = torch.tensor([3, 7])
+    with torch.no_grad():
+        by_token, _ = T.decode_step(cfg, params, tok,
+                                    T.make_cache(cfg, 2, 8, "cpu"), 0)
+        by_embed, _ = T.decode_step(cfg, params, params["embed"][tok],
+                                    T.make_cache(cfg, 2, 8, "cpu"), 0)
+    assert torch.equal(by_token, by_embed)
+    with pytest.raises(ValueError, match="embedding"):
+        T.decode_step(cfg, params, torch.zeros(2, 1, cfg.d_model),
+                      T.make_cache(cfg, 2, 8, "cpu"), 0)
+    enc = get_config("hubert-xlarge").reduced()
+    with pytest.raises(ValueError, match="encoder-only"):
+        T.decode_step(enc, T.init_params(enc, torch.Generator()), tok,
+                      T.make_cache(enc, 2, 8, "cpu"), 0)

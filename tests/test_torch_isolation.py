@@ -54,6 +54,43 @@ def test_port_imports_without_jax_or_repro():
     assert int(out.stdout.strip()) >= 30
 
 
+@pytest.mark.parametrize("module", ["repro_torch.models.mamba2",
+                                    "repro_torch.models.frontend"])
+def test_family_module_imports_alone_without_jax_or_repro(module):
+    """The zamba and frontend families' modules, each imported first and
+    alone in a fresh interpreter that refuses ``jax`` and ``repro``, and
+    run there: a mamba2 state and a frontend embedding on the CPU."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name == "repro" or name.startswith("repro."):
+                    raise ImportError("refused: " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        sys.path[:0] = [{str(ROOT / "src")!r}]
+        mod = importlib.import_module({module!r})
+        from repro_torch.configs import get_config
+        if mod.__name__.endswith("mamba2"):
+            st = mod.mamba2_state(get_config("zamba2-7b").reduced(), 1)
+            assert st["ssm"].shape[-2:] == (mod.HEAD_P, 64)
+        else:
+            x = mod.frontend_embeddings(get_config("hubert-xlarge"), 1, 2,
+                                        device="cpu")
+            assert tuple(x.shape) == (1, 2, 1280)
+        bad = [m for m, mod in sys.modules.items() if mod is not None
+               and (m == "repro" or m.startswith(("repro.", "jax")))]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+
+
 def _imported(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
