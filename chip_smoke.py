@@ -42,10 +42,23 @@ toolkit. In order, it
    decoded token is what a fresh prefill picks wherever its logit gap
    decides it; times the decode steps, profiles one, and applies the 2nd
    supervisor (``seq_min_likelihood``) to the answers;
-6. mirrors ``benchmarks/supervisor_comparison.py`` on the card: trains a
+6. runs the fleet runtime on the same yi-6b: the device -> edge -> cloud
+   tier ladder through ``repro_torch.launch.serve`` (both hops the
+   full-width remote tier: flash attention once per layer per window of
+   either hop) and the degenerate 2-stage identity (a terminal
+   ``CascadeStage`` serves as the plain backend); 4 replicas behind one
+   cascade, through ``repro_torch.launch.serve`` with ``replicas=4`` and
+   then as a ``ClusterHarness`` on a virtual clock over skewed traffic
+   whose contents recur across replicas, run twice (every uid once,
+   single fill, billing, cross-replica hits, the two runs' outputs equal
+   bit for bit);
+   and the remote router under a seeded 50% brownout in fifo and in
+   streaming completion (every failure an injected one, the two modes
+   billing alike);
+7. mirrors ``benchmarks/supervisor_comparison.py`` on the card: trains a
    surrogate, fits MDSA on its training-set activations, scores the test
    set through the MDSA kernel and prints every supervisor's AUC-ROC;
-7. frees yi-6b, then serves 256 requests with rwkv6-1.6b at full width
+8. frees yi-6b, then serves 256 requests with rwkv6-1.6b at full width
    as the remote tier (the RWKV6 scan kernel once per layer per remote
    window) and generates 32 tokens for 8 prompts of 512 tokens with it,
    with the checks of steps 4 and 5; then the same, one model at a time,
@@ -58,7 +71,7 @@ toolkit. In order, it
    per group of its shared block, the mamba2 layers in plain PyTorch)
    and pixtral-12b (served on tokens; its prompts 256 patch embeddings,
    then 256 tokens);
-8. frees the last of them, then holds the train path (``loss_fn``, every
+9. frees the last of them, then holds the train path (``loss_fn``, every
    gradient leaf, the in-place AdamW step, a checkpoint round trip) on the
    card against the CPU on reduced yi-6b, h2o-danube (T = 128 past its
    window of 64), rwkv6, zamba2 in two groups, pixtral (the loss over
@@ -70,7 +83,7 @@ toolkit. In order, it
    tokens/s, MFU and peak memory (``train``); and the same for
    rwkv6-1.6b and hubert-xlarge (8 x 128 frame embeddings) at full
    width, 2 + 4 steps (``train_rwkv6``, ``train_hubert``);
-9. prints one ``{"kernels": [...]}`` line and, last, one
+10. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line. Full results are also
@@ -199,46 +212,48 @@ def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _device_us(e) -> float:
-    """A profiler event's own device time in microseconds."""
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        v = getattr(e, name, None)
-        if v:
-            return float(v)
-    return 0.0
-
-
-def _is_kernel(e) -> bool:
-    return (str(getattr(e, "device_type", "")).endswith("CUDA")
-            and _device_us(e) > 0)
+def captured(fn, calls: int, cpu: bool = False) -> list:
+    """``kernel_events(fn, calls, cpu=cpu)``. A capture that took more
+    than one attempt is logged, and kept in ``RESULTS["profiler_retries"]``,
+    with its index among this run's captures, its attempts and the first
+    kernels of the trace that was kept (which say what it profiled)."""
+    from repro_torch.kernels.profiling import CAPTURES, kernel_events
+    before = CAPTURES.copy()
+    events = kernel_events(fn, calls, cpu=cpu)
+    attempts = max((CAPTURES - before).keys())
+    if attempts > 1:
+        row = {"capture": sum(CAPTURES.values()), "calls": calls,
+               "attempts": attempts,
+               "kernels": sorted({e.key[:60] for e in events})[:4]}
+        RESULTS.setdefault("profiler_retries", []).append(row)
+        log({"phase": "profiler_retry", **row})
+    return events
 
 
 def device_ms(fn, marks: tuple[str, ...],
-              calls: int = 20) -> tuple[float | None, int]:
+              calls: int = 20) -> tuple[float, int]:
     """(device time of one call of ``fn``, device kernels per call):
-    ``calls`` back-to-back calls run under torch.profiler; each kernel
+    ``calls`` back-to-back calls captured by ``captured`` (through
+    ``kernel_events``, which takes the trace again while it holds no
+    kernel event, and raises after ``ATTEMPTS`` empty ones); each kernel
     whose name contains one of ``marks`` counts its mean time per launch
     once for each launch per call, and every device kernel of any name
     counts towards the launches per call. The wrapper's host work is not
     in it (it is in the CUDA-event times, where it sets the pace at small
-    shapes). The profiler drops an event now and then (37 of 40 once, at
-    1.3 ms kernels), so launches per call are rounded, and it has come
-    back empty, so an empty trace is taken once more; the time is None
-    where the second one records no device time either."""
-    from torch.profiler import ProfilerActivity, profile
+    shapes). The profiler drops events now and then (37 of 40 once; under
+    half of a flash kernel's 20 once), so a kernel's launches per call
+    are its count over ``calls``, rounded, and at least 1: every kernel
+    in the trace ran in each call. A trace whose kernels carry none of
+    ``marks`` raises: the mark names no kernel that ran."""
+    from repro_torch.kernels.profiling import device_us
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages() if _is_kernel(e)]
-        us = sum(_device_us(e) / e.count * round(e.count / calls)
-                 for e in kern if any(m in e.key for m in marks))
-        if us:
-            return us / 1e3, round(sum(e.count for e in kern) / calls)
-    return None, 0
+    kern = [e for e in captured(fn, calls) if device_us(e) > 0]
+    per_call = {e.key: max(1, round(e.count / calls)) for e in kern}
+    us = sum(device_us(e) / e.count * per_call[e.key]
+             for e in kern if any(m in e.key for m in marks))
+    assert us > 0, f"no device kernel under {marks} in {sorted(per_call)}"
+    return us / 1e3, sum(per_call.values())
 
 
 # the gate family's kernels as built: the profiler marks naming them and
@@ -1352,27 +1367,25 @@ def free(dev) -> None:
 
 
 def device_profile(fn) -> dict:
-    """One call of ``fn`` (ending in a synchronize) under torch.profiler:
-    its traced wall time, device (kernel) time by name and the device's
-    busy share."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    """One call of ``fn`` (ending in a synchronize) under torch.profiler,
+    CPU activity traced too (through ``captured``): its traced wall
+    time, device (kernel) time by name and the device's busy share."""
+    from repro_torch.kernels.profiling import device_us
+    walls = []
+
+    def timed():
         t0 = time.perf_counter()
         fn()
-        traced_ms = (time.perf_counter() - t0) * 1e3
+        walls.append((time.perf_counter() - t0) * 1e3)
 
-    device_us = _device_us
+    events = captured(timed, calls=1, cpu=True)
+    traced_ms = walls[-1]       # the capture whose trace was kept
     # kernel events only (an operator's device time repeats its kernels')
-    kern = sorted(((e.key, device_us(e) / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")
-                   and device_us(e) > 0),
-                  key=lambda r: -r[1])
+    kern = sorted(((e.key, device_us(e) / 1e3, e.count) for e in events
+                   if device_us(e) > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in kern)
-    return {"traced_wall_ms": traced_ms,
-            "device_busy_ms": busy_ms if kern else None,
-            "device_busy_share": busy_ms / traced_ms if kern else None,
+    return {"traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / traced_ms,
             "top_kernels_ms": [[k, round(ms, 4), n] for k, ms, n in kern[:8]]}
 
 
@@ -1398,6 +1411,443 @@ def profile_remote_window(stack, rows: int = 8, reps: int = 5) -> dict:
            "wall_ms": statistics.median(walls), **device_profile(window)}
     log(row)
     return row
+
+
+# ----------------------------------------------------------------------------
+# the fleet runtime: the tier ladder, the replica cluster, chaos injection
+# ----------------------------------------------------------------------------
+
+FLEET_REQUESTS, IDENTITY_REQUESTS = 256, 64
+# every remote window's deadline, far above a window's first warm-up
+FLEET_TIMEOUT = "transport.timeout_s=300"
+CLUSTER_REPLICAS, CLUSTER_PROTOS, CLUSTER_STEP_S = 4, 96, 0.05
+# benchmarks/cluster_bench.py's skew: hard rows mostly on r0/r1
+HARD_W, EASY_W = (8.0, 4.0, 1.0, 1.0), (1.0, 2.0, 4.0, 7.0)
+FLEET_SEED = 7
+
+
+def launches_of(fn) -> tuple:
+    """(fn's result, the kernel launches it made): every count set to 0
+    just before and read just after."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def phase_numbers(dev, n: int, wall: float) -> dict:
+    return {"requests": n, "wall_s": wall, "req_per_s": n / wall,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def billing_of(st) -> dict:
+    from repro_torch.serving.engine import BILLING_FIELDS
+    return {f: getattr(st, f) for f in BILLING_FIELDS}
+
+
+def per_backend_of(st) -> dict:
+    return {str(k): vars(v).copy() for k, v in st.per_backend.items()}
+
+
+def serve_with_router(stack, cfg, router, n: int) -> tuple:
+    """The stack's first ``n`` requests through an engine and scheduler
+    built from ``cfg`` around ``router`` (as ``serve.run`` builds them,
+    with no response cache); returns (responses by uid, engine, wall
+    seconds)."""
+    from repro_torch.serving import Request
+    eng, sched = cfg.build(stack.local_apply, transport=router, cache=None,
+                           fallback=lambda r: -1, device=stack.device)
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            sched.submit(Request(
+                uid=i, local_input=stack.local_toks[i],
+                remote_input={"tokens": stack.toks[i] % stack.rcfg.vocab_size,
+                              "idx": np.int32(i)}))
+        responses = sched.flush()
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    return (sorted(responses, key=lambda r: r.uid), eng,
+            time.perf_counter() - t0)
+
+
+def response_rows(responses) -> list:
+    return [(r.uid, int(r.prediction), r.source, r.disposition, r.backend,
+             r.cost) for r in responses]
+
+
+def edge_threshold(stack) -> float:
+    """A threshold halfway between the two middle remote confidences of
+    the first 128 requests: the edge hop answers about half the rows it
+    gets and escalates the rest to the cloud hop. (With the yi-6b oracle
+    head every remote confidence is about 0.998, so the 0.6 of JAX's
+    example ladder lets the edge hop answer every row, and the cloud hop
+    never runs.)"""
+    from repro_torch.core.supervisors import max_softmax
+    conf = to_numpy(max_softmax(stack.remote_apply(
+        {"tokens": stack.toks[:128] % stack.rcfg.vocab_size,
+         "idx": np.arange(128)})))
+    c = np.sort(conf.astype(np.float64))
+    return float((c[63] + c[64]) / 2)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def serve_tiers_phase(dev, stack) -> dict:
+    """The device -> edge -> cloud ladder through ``serve.run`` with
+    ``--set tiers=edge:0.001:0.1:<t>;cloud:0.0048:0.8`` (JAX's example
+    ladder, its edge threshold ``t`` set between the remote confidences),
+    both hops the full-width yi-6b remote apply; then the degenerate
+    2-stage identity: a terminal ``CascadeStage`` serves exactly as the
+    plain ``RemoteBackend``."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    from repro_torch.runtime import CascadeStage, RemoteBackend, RemoteRouter
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_edge = edge_threshold(stack)
+    tiers = f"tiers=edge:0.001:0.1:{t_edge!r};cloud:0.0048:0.8"
+    args = serve.parse_args(SERVE_ARGV + ["--set", tiers,
+                                          "--set", FLEET_TIMEOUT])
+    cfg = stack.cfg.with_overrides([tiers, FLEET_TIMEOUT])
+    res, counts = launches_of(
+        lambda: serve.run(args, dataclasses.replace(stack, cfg=cfg)))
+    n = args.requests
+    main = serve_checks(res, n)
+    st = res.engine.stats
+    head = res.engine.router.candidates()[0]
+    stages = head.chain()
+    assert [s.name for s in stages] == ["edge", "cloud"]
+    for s in stages:
+        assert (s.stats.errors, s.stats.timeouts, s.stats.failed_requests,
+                s.stats.short_circuited) == (0, 0, 0, 0), \
+            f"stage {s.name}: {s.stats}"
+    per = per_backend_of(st)
+    # both hops answered rows, and each stage name's escalations reconcile
+    assert set(per) == {"edge", "cloud"}, per
+    assert all(u["remote_calls"] > 0 for u in per.values()), per
+    assert {r.backend for r in res.responses if r.backend} == {"edge",
+                                                               "cloud"}
+    windows = {s.name: s.stats.windows for s in stages}
+    want = attention_layers(stack.rcfg) * sum(windows.values())
+    assert counts["flash_attention"] == want, \
+        f"flash_attention: {counts['flash_attention']} launches, not {want}"
+    assert counts["gate_score"] > 0 and counts["gate_select"] > 0
+    assert counts["decode_attention"] == 0
+    out = {"t_edge": t_edge, "main": main, "launches": counts,
+           "stage_windows": windows,
+           "stage_stats": {s.name: vars(s.stage_stats).copy()
+                           for s in stages},
+           "per_backend": per,
+           **phase_numbers(dev, n, res.wall_s)}
+
+    # the degenerate 2-stage identity, over 64 requests
+    base = stack.cfg.with_overrides([FLEET_TIMEOUT])
+    runs = {}
+    for cls in (RemoteBackend, CascadeStage):
+        router = RemoteRouter([cls("remote", stack.remote_apply,
+                                   base.transport)],
+                              policy=base.route_policy)
+        (rows, eng, wall), c = launches_of(lambda: serve_with_router(
+            stack, base, router, IDENTITY_REQUESTS))
+        runs[cls.__name__] = {"responses": response_rows(rows),
+                              "billing": billing_of(eng.stats),
+                              "per_backend": per_backend_of(eng.stats),
+                              "flash": c["flash_attention"], "wall_s": wall}
+    plain, stage = runs["RemoteBackend"], runs["CascadeStage"]
+    for key in ("responses", "billing", "per_backend", "flash"):
+        assert plain[key] == stage[key], f"2-stage identity: {key} differs"
+    assert plain["flash"] > 0
+    out["identity"] = {"requests": IDENTITY_REQUESTS,
+                       "billing": plain["billing"], "flash": plain["flash"],
+                       "wall_s": [plain["wall_s"], stage["wall_s"]]}
+    log({"phase": "serve_tiers", **out})
+    return out
+
+
+def cluster_workload(stack, n: int) -> tuple:
+    """``n`` requests over ``CLUSTER_PROTOS`` prototype rows of the task
+    (so content keys recur across replicas), each assigned to a replica
+    by a seeded draw weighted by its difficulty: hard rows (local
+    confidence below the median) mostly to r0/r1, easy rows to r2/r3.
+    Returns (prototype per request, replica per request)."""
+    from repro_torch.core.supervisors import max_softmax
+    rng = np.random.default_rng(FLEET_SEED + 13)
+    proto = rng.integers(0, CLUSTER_PROTOS, n)
+    conf = to_numpy(max_softmax(stack.local_apply(torch.as_tensor(
+        stack.local_toks[:CLUSTER_PROTOS], device=stack.device))))
+    hard = conf < np.median(conf)
+    hw = np.asarray(HARD_W) / sum(HARD_W)
+    ew = np.asarray(EASY_W) / sum(EASY_W)
+    assign = [f"r{rng.choice(CLUSTER_REPLICAS, p=hw if hard[j] else ew)}"
+              for j in proto]
+    return proto, assign
+
+
+def cluster_run(stack, cfg, proto, assign) -> dict:
+    """One fleet run on a fresh virtual clock, router and harness: request
+    i (prototype ``proto[i]``) to replica ``assign[i]``, the clock
+    ``CLUSTER_STEP_S`` on per request, every replica flushed each 32
+    requests per replica."""
+    from repro_torch.runtime import ClusterHarness, VirtualClock
+    from repro_torch.runtime.cache import content_key, content_keys
+    from repro_torch.serving import Request
+    clock = VirtualClock()
+    router = cfg.build_router(stack.remote_apply, clock=clock,
+                              sleep=clock.sleep)
+    h = ClusterHarness(
+        cfg, stack.local_apply, transport=router, fallback=lambda r: -1,
+        clock=clock, seed=FLEET_SEED, reconcile_interval_s=2.0,
+        cache_key_fn=lambda row: content_key(row["tokens"]),
+        cache_key_batch_fn=lambda b, k: content_keys(b["tokens"], k),
+        device=stack.device)
+    responses = []
+    t0 = time.perf_counter()
+    every = cfg.batch_size * CLUSTER_REPLICAS
+    for i, (j, name) in enumerate(zip(proto, assign)):
+        clock.advance_to(CLUSTER_STEP_S * i)
+        h.submit(name, Request(
+            uid=i, local_input=stack.local_toks[j],
+            remote_input={"tokens": stack.toks[j] % stack.rcfg.vocab_size,
+                          "idx": np.int32(j)}))
+        if (i + 1) % every == 0:
+            for batch in h.flush().values():
+                responses.extend(batch)
+    for batch in h.flush().values():
+        responses.extend(batch)
+    h.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"harness": h, "wall_s": wall,
+            "responses": sorted(responses, key=lambda r: r.uid)}
+
+
+def cluster_digest(run) -> tuple[dict, dict]:
+    """(integer outputs, float outputs) of a fleet run."""
+    h = run["harness"]
+    ints = {
+        "responses": [(r.uid, int(r.prediction), r.source, r.disposition,
+                       r.backend) for r in run["responses"]],
+        "billing": {n: {f: v for f, v in billing_of(
+            h.replica(n).engine.stats).items() if f != "total_cost"}
+            for n in h.names},
+        "reconciles": h.cluster.state.reconciles,
+        "feed": [(u.key.hex(), u.source, u.replica)
+                 for u in h.shared_cache.feed],
+        "shared_cache": vars(h.shared_cache.stats).copy(),
+    }
+    floats = {
+        "local_conf": [r.local_conf for r in run["responses"]],
+        "remote_conf": [r.remote_conf for r in run["responses"]],
+        "cost": [r.cost for r in run["responses"]],
+        "targets": [h.cluster.target(n) for n in h.names],
+        "total_cost": [h.replica(n).engine.stats.total_cost
+                       for n in h.names],
+    }
+    return ints, floats
+
+
+def fleet_checks(stack, h, responses, n: int, counts: dict) -> dict:
+    """The invariants of a fleet run of ``n`` requests through harness
+    ``h``: every uid answered once, single fill (no duplicate fill, a
+    feed of unique keys), each remote call a fill or a redundant put, the
+    replicas' billing summing to ``cluster_billing``, each replica's
+    escalations reconciled with no transport failure, and 32 flash
+    launches per remote window with the gate kernels launched. Returns
+    the run's numbers."""
+    from repro_torch.runtime import cluster_billing
+    from repro_torch.serving.engine import BILLING_FIELDS
+    assert sorted(r.uid for r in responses) == list(range(n)), \
+        f"answered {len(responses)} of {n} requests, or one twice"
+    scs = h.shared_cache.stats
+    assert scs.duplicate_fills == 0, scs
+    keys = [u.key for u in h.shared_cache.feed]
+    assert len(keys) == len(set(keys)), "a key filled twice"
+    fleet = h.global_billing()
+    b = fleet["billing"]
+    assert b["requests"] == n
+    assert b["remote_calls"] == scs.fills + scs.redundant_puts, (b, scs)
+    stats = {name: h.replica(name).engine.stats for name in h.names}
+    for f in BILLING_FIELDS:
+        total = sum(getattr(st, f) for st in stats.values())
+        assert math.isclose(b[f], total, rel_tol=1e-12, abs_tol=1e-12), f
+    assert fleet == cluster_billing(stats)
+    for st in stats.values():
+        assert st.escalations == st.remote_calls + st.cache_hits \
+            + st.transport_failures
+        assert st.transport_failures == 0, st
+    windows = sum(bk.stats.windows for bk in h.router)
+    assert counts["flash_attention"] == \
+        attention_layers(stack.rcfg) * windows, \
+        (counts["flash_attention"], windows)
+    assert counts["gate_score"] > 0 and counts["gate_select"] > 0
+    return {"billing": b,
+            "cross_hits": sum(h.replica(name).cache.stats.cross_hits
+                              for name in h.names),
+            "remote_windows": windows,
+            "reconciles": h.cluster.state.reconciles,
+            "mode": h.cluster.state.mode,
+            "targets": {name: h.cluster.target(name) for name in h.names},
+            "shared_cache": vars(scs).copy(), "launches": counts,
+            "per_replica_requests": {name: st.requests for name, st
+                                     in stats.items()}}
+
+
+def serve_cluster_phase(dev, stack) -> dict:
+    """4 replicas behind one logical cascade, one router over the
+    full-width yi-6b remote and one shared response cache. First through
+    the entry point (``serve.run`` with ``--set replicas=4 --adaptive``:
+    round-robin, wall-clock reconciles); then twice on a virtual clock
+    with 256 requests of skewed traffic whose contents recur across
+    replicas, and the two runs agree bit for bit."""
+    import dataclasses
+
+    from repro_torch.launch import serve
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = FLEET_REQUESTS
+    sets = [f"replicas={CLUSTER_REPLICAS}", FLEET_TIMEOUT]
+    args = serve.parse_args(SERVE_ARGV + ["--adaptive"] + sum(
+        (["--set", x] for x in sets), []))
+    cfg = stack.cfg.with_overrides(sets + ["adaptive=True"])
+    res, counts = launches_of(
+        lambda: serve.run(args, dataclasses.replace(stack, cfg=cfg)))
+    h = res.harness
+    assert res.engine is None and h is not None
+    entry = fleet_checks(stack, h, res.responses, args.requests, counts)
+    assert entry["reconciles"] >= 1     # the run's closing reconcile
+    assert set(entry["per_replica_requests"].values()) == \
+        {args.requests // CLUSTER_REPLICAS}
+    entry.update(phase_numbers(dev, args.requests, res.wall_s))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = stack.cfg.with_overrides([
+        f"replicas={CLUSTER_REPLICAS}", "adaptive=True",
+        "control_window=32", "observability=True", FLEET_TIMEOUT])
+    proto, assign = cluster_workload(stack, n)
+    runs = []
+    for _ in range(2):
+        run, counts = launches_of(
+            lambda: cluster_run(stack, cfg, proto, assign))
+        row = fleet_checks(stack, run["harness"], run["responses"], n,
+                           counts)
+        assert row["cross_hits"] > 0, "no hit across replicas"
+        row.update(wall_s=run["wall_s"], req_per_s=n / run["wall_s"])
+        run["row"] = row
+        runs.append(run)
+    (ia, fa), (ib, fb) = (cluster_digest(r) for r in runs)
+    assert ia == ib, "the two fleet runs differ in an integer output"
+    # the card replays bit for bit: each sum runs in one order in both
+    # runs, so a float that differs is a loss of determinism
+    for k in fa:
+        assert fa[k] == fb[k], f"the two fleet runs differ in {k}"
+    out = {"replicas": CLUSTER_REPLICAS, "protos": CLUSTER_PROTOS,
+           "entry_point": entry, "runs": [r["row"] for r in runs],
+           "bitwise_replay": True,
+           **phase_numbers(dev, n, runs[0]["wall_s"])}
+    log({"phase": "serve_cluster", **out})
+    return out
+
+
+def chaos_run(stack, cfg, mode: str) -> dict:
+    """The stack's 256 requests through ``cfg``'s router under a 50%
+    brownout of every call (``ChaosEpisode("brownout", 0, 1e9, rate=0.5)``,
+    seeded), in completion mode ``mode``. Each backend's remote apply is
+    wrapped outside the chaos wrapper to count the exceptions it raises
+    and whether each carries its episode's ``chaos[...]`` tag."""
+    import dataclasses
+
+    from repro_torch.runtime import ChaosEpisode, ChaosSchedule
+    cfg = dataclasses.replace(cfg, completion_mode=mode)
+    router = cfg.build_router(stack.remote_apply)
+    schedule = ChaosSchedule([ChaosEpisode("brownout", 0.0, 1e9, rate=0.5,
+                                           name="brownout")],
+                             seed=FLEET_SEED)
+    schedule.wrap_router(router)
+    raised = {"tagged": 0, "untagged": 0}
+
+    def tally(inner):
+        def call(batch):
+            try:
+                return inner(batch)
+            except Exception as e:
+                raised["tagged" if "chaos[brownout]" in str(e)
+                       else "untagged"] += 1
+                raise
+        return call
+
+    for b in router:
+        b.transport.remote_apply = tally(b.transport.remote_apply)
+    (rows, eng, wall), counts = launches_of(lambda: serve_with_router(
+        stack, cfg, router, FLEET_REQUESTS))
+    return {"responses": rows, "engine": eng, "router": router,
+            "schedule": schedule, "raised": raised, "launches": counts,
+            "wall_s": wall}
+
+
+def serve_chaos_phase(dev, stack) -> dict:
+    """The yi-6b router under a seeded 50% brownout, served in fifo and in
+    streaming completion with two windows in flight: every failure is an
+    injected one, billing reconciles, and the two modes bill alike. The
+    transport runs with one pool worker, so the two in-flight windows
+    reach the chaos wrapper in the order they were submitted (with more
+    workers they race, and the count-indexed draws can land on other
+    windows in the two modes); it neither retries nor opens its breaker,
+    so each failed window is one injected fault."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg = stack.cfg.with_overrides([
+        "pipeline_depth=2", FLEET_TIMEOUT, "transport.max_retries=0",
+        "transport.breaker_failures=1000000", "transport.max_concurrent=1"])
+    out = {}
+    digests = {}
+    for mode in ("fifo", "streaming"):
+        run = chaos_run(stack, cfg, mode)
+        rows, st, sch = response_rows(run["responses"]), \
+            run["engine"].stats, run["schedule"].stats
+        n = FLEET_REQUESTS
+        assert [r[0] for r in rows] == list(range(n)), \
+            f"{mode}: answered {len(rows)} of {n} requests, or one twice"
+        errors = sum(b.stats.errors for b in run["router"])
+        assert sum(b.stats.timeouts for b in run["router"]) == 0
+        assert run["raised"]["untagged"] == 0, run["raised"]
+        assert run["raised"]["tagged"] == sch.injected == errors > 0, \
+            (run["raised"], sch.injected, errors)
+        assert sch.by_episode == {"brownout": sch.injected}
+        assert st.transport_failures > 0
+        assert st.escalations == st.remote_calls + st.cache_hits \
+            + st.transport_failures
+        # every fallback is counted in ``rejected``: a row lost to the
+        # transport (billed nothing) or a billed answer the 2nd supervisor
+        # refused
+        falls = [r for r in rows if r[2] == "fallback"]
+        fallbacks = len(falls)
+        lost = sum(r[5] == 0.0 for r in falls)
+        assert fallbacks == st.rejected, (fallbacks, st.rejected)
+        assert lost == st.transport_failures, (lost, st.transport_failures)
+        assert math.isclose(st.total_cost, sum(
+            u.cost for u in st.per_backend.values()), rel_tol=1e-9,
+            abs_tol=1e-12)
+        counts = run["launches"]
+        calls = sch.calls - sch.injected        # windows that reached yi-6b
+        assert counts["flash_attention"] == \
+            attention_layers(stack.rcfg) * calls, \
+            (counts["flash_attention"], calls)
+        assert counts["gate_score"] > 0 and counts["gate_select"] > 0
+        digests[mode] = {"responses": [r[:3] for r in rows],
+                         "billing": billing_of(st),
+                         "per_backend": per_backend_of(st),
+                         "chaos": vars(sch).copy()}
+        out[mode] = {"billing": billing_of(st), "chaos": vars(sch).copy(),
+                     "fallbacks": fallbacks, "launches": counts,
+                     **phase_numbers(dev, n, run["wall_s"])}
+    for key in ("responses", "billing", "per_backend", "chaos"):
+        assert digests["fifo"][key] == digests["streaming"][key], \
+            f"fifo and streaming differ in {key}"
+    log({"phase": "serve_chaos", **out})
+    return out
 
 
 def top2_gap(logits: torch.Tensor) -> torch.Tensor:
@@ -2021,6 +2471,13 @@ def main() -> int:
     phases["serve"] = serve
     phases["generate"] = gen = generate_phase(dev, stack)
     lap("yi-6b")
+    # the fleet runtime on the same full-width yi-6b
+    phases["serve_tiers"] = serve_tiers_phase(dev, stack)
+    lap("serve_tiers")
+    phases["serve_cluster"] = serve_cluster_phase(dev, stack)
+    lap("serve_cluster")
+    phases["serve_chaos"] = serve_chaos_phase(dev, stack)
+    lap("serve_chaos")
     phases["supervisors"] = sup = supervisor_phase(dev)
     lap("supervisors")
     # free yi-6b, so that rwkv6's phases measure their own peak memory
@@ -2057,6 +2514,11 @@ def main() -> int:
     log({"phase": "seconds", **seconds})
     line = kernels_line(kern, serve, gen, rwkv_gen, sup)
     RESULTS["kernels"] = line["kernels"]
+    # profiler captures by the attempts each took (an empty trace is
+    # taken again)
+    from repro_torch.kernels.profiling import CAPTURES
+    RESULTS["profiler_captures"] = dict(sorted(CAPTURES.items()))
+    log({"phase": "profiler_captures", **RESULTS["profiler_captures"]})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(RESULTS, indent=1))

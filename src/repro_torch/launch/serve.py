@@ -20,17 +20,36 @@ The serving surface is ONE ``ServeConfig``; any field is set with a
 repeatable ``--set key=value`` (nested ``transport.*``, ``cost.*``,
 ``default_policy.*`` too). Observability: ``--metrics-dump``,
 ``--metrics-interval``, ``--metrics-port``, ``--trace``,
-``--trace-chrome``. ``tiers`` and ``replicas > 1`` are not ported yet.
+``--trace-chrome``.
+
+An N-tier ladder replaces the flat registry: the tier specs chain into
+one routed ``CascadeStage`` head, each hop answering what its supervisor
+trusts and escalating the residual; every hop runs the remote tier's
+model, e.g.::
+
+    --set "tiers=edge:0.001:0.1:0.6;cloud:0.0048:0.8"
+
+``--set replicas=N --adaptive`` serves through N engines behind one
+logical cascade (``runtime.cluster.ClusterHarness``): one shared router,
+a single-fill shared response cache and a cluster budget reconciler;
+requests round-robin across the replicas, and ``--trace``/
+``--trace-chrome`` are refused (the metrics flags serve the merged,
+replica-labelled fleet registry). ``data_parallel`` is not ported yet.
 
 ``main`` is three calls, which callers that need the built stack (the
 chip smoke test) make themselves: ``parse_args`` -> ``build_stack``
 (task, surrogate training, remote model, calibration) -> ``run`` (serve
-the requests through the engine and scheduler, print the report).
+the requests through the engine and scheduler, or through the cluster
+harness when ``replicas > 1``, and print the report).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 256 \\
         --batch 32 --remote-budget 0.3
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --set "tiers=edge:0.001:0.1:0.6;cloud:0.0048:0.8"
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --smoke \
+        --set replicas=2 --adaptive
 """
 
 from __future__ import annotations
@@ -159,6 +178,11 @@ def parse_args(argv=None) -> argparse.Namespace:
             and not args.calibrate):
         ap.error("cost_budget is only enforced by the controller or the "
                  "offline sweep; add --adaptive and/or --calibrate")
+    if cfg.replicas > 1 and (args.trace or args.trace_chrome):
+        ap.error("replicas>1 supports the metrics surface "
+                 "(--metrics-dump / --metrics-interval / --metrics-port "
+                 "serve the merged fleet registry, replica-labelled); "
+                 "per-replica tracing is a follow-on (DESIGN.md §12)")
     try:
         rcfg = get_config(args.remote_arch)
         args.device = resolve_device(args.device)
@@ -300,17 +324,22 @@ def build_stack(args) -> Stack:
 
 @dataclass
 class ServeResult:
+    """What ``run`` served: the responses, the engine and scheduler (the
+    single-engine path) or the cluster harness (``replicas > 1``), and
+    the wall time."""
     responses: list
     engine: Any
     scheduler: Any
     wall_s: float
+    harness: Any = None
 
 
 def run(args, stack: Stack, local_apply: Callable | None = None,
         requests: int | None = None) -> ServeResult:
     """Build the engine and scheduler from ``stack.cfg`` around
     ``local_apply`` (the stack's surrogate by default), serve ``requests``
-    requests (``args.requests`` by default) and print the report."""
+    requests (``args.requests`` by default) and print the report. With
+    ``replicas > 1`` the requests go through the cluster harness."""
     cfg, dev = stack.cfg, stack.device
     local_apply = local_apply or stack.local_apply
     n_req = args.requests if requests is None else requests
@@ -319,6 +348,12 @@ def run(args, stack: Stack, local_apply: Callable | None = None,
         print(f"[serve] remote registry: "
               f"{[b.name for b in router.candidates()]} "
               f"(policy {router.policy})")
+        if cfg.tiers:
+            head = router.candidates()[0]
+            print("[serve] tier ladder: " + " -> ".join(
+                f"{s.name}(t={s.threshold:g})" for s in head.chain()))
+    if cfg.replicas > 1:
+        return _serve_cluster(args, stack, router, local_apply, n_req)
     if cfg.fused:
         eng, sched = cfg.build(local_apply, stack.remote_apply,
                                fallback=lambda r: -1, device=dev)
@@ -384,6 +419,137 @@ def run(args, stack: Stack, local_apply: Callable | None = None,
         dump_metrics(args.metrics_dump)
         print(f"[serve] wrote metrics snapshot -> {args.metrics_dump}")
     return ServeResult(responses, eng, sched, wall)
+
+
+def _serve_cluster(args, stack: Stack, router, local_apply: Callable,
+                   n_req: int) -> ServeResult:
+    """Replicated serving: ``cfg.replicas`` engines behind one logical
+    cascade — one shared router, a single-fill shared response cache and
+    a cluster budget reconciler re-weighting per-replica targets.
+    Requests round-robin across replicas."""
+    from repro_torch.runtime.cluster import ClusterHarness
+
+    cfg, dev = stack.cfg, stack.device
+    harness = ClusterHarness(
+        cfg, local_apply, transport=router, fallback=lambda r: -1,
+        clock=time.perf_counter, reconcile_interval_s=1.0,
+        cache_key_fn=lambda row: content_key(row["tokens"]),
+        cache_key_batch_fn=lambda b, n: content_keys(b["tokens"], n),
+        device=dev)
+    names = harness.names
+    print(f"[serve] cluster: {cfg.replicas} replicas {names}, shared "
+          f"cache {'on' if harness.shared_cache is not None else 'off'}, "
+          f"reconcile every {harness.reconcile_interval_s:.1f}s")
+
+    # the fleet shares ONE MetricsRegistry (replica-labelled series), so
+    # the live scrape endpoint and the interval pump serve the merged
+    # snapshot directly
+    metrics_server = None
+    if harness.metrics is not None and args.metrics_port is not None:
+        from repro_torch.runtime.observability import MetricsServer
+        metrics_server = MetricsServer(harness.metrics,
+                                       port=args.metrics_port)
+        print(f"[serve] metrics endpoint: {metrics_server.url} "
+              f"(merged fleet registry)")
+    stop_pump = threading.Event()
+
+    def pump():
+        while not stop_pump.wait(args.metrics_interval):
+            c = harness.metrics.snapshot()["counters"]
+            print(f"[serve] fleet metrics: "
+                  f"{c.get('cascade_requests_total', 0):.0f} requests, "
+                  f"{c.get('cascade_escalations_total', 0):.0f} "
+                  f"escalated, "
+                  f"${c.get('cascade_cost_dollars_total', 0.0):.4f}")
+
+    pump_thread = None
+    if harness.metrics is not None and args.metrics_interval:
+        pump_thread = threading.Thread(target=pump, daemon=True)
+        pump_thread.start()
+
+    toks, local_toks, labels = stack.toks, stack.local_toks, stack.labels
+    t0 = time.perf_counter()
+    responses = []
+    flush_every = max(cfg.batch_size, 1) * len(names)
+    try:
+        for i in range(n_req):
+            shed = harness.submit(names[i % len(names)], Request(
+                uid=i, local_input=local_toks[i],
+                remote_input={"tokens": toks[i] % stack.rcfg.vocab_size,
+                              "idx": np.int32(i)}))
+            if shed is not None:
+                responses.append(shed)
+            if (i + 1) % flush_every == 0:
+                for batch in harness.flush().values():
+                    responses.extend(batch)
+        for batch in harness.flush().values():
+            responses.extend(batch)
+        # short runs can finish inside one cadence interval: force a
+        # final reconcile so the budget summary below is always live
+        harness.cluster.reconcile(time.perf_counter())
+    finally:
+        harness.close()
+        if pump_thread is not None:
+            stop_pump.set()
+            pump_thread.join(timeout=5.0)
+        if metrics_server is not None:
+            metrics_server.close()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+
+    correct = sum(r.prediction == labels[r.uid] for r in responses
+                  if r.source != "fallback")
+    nfall = sum(r.source == "fallback" for r in responses)
+    print(f"[serve] cluster: {len(responses)} responses in "
+          f"{wall:.1f}s wall "
+          f"({len(responses) / max(wall, 1e-9):.0f} req/s)")
+    print(f"[serve] accepted accuracy: "
+          f"{correct / max(len(responses) - nfall, 1):.3f}")
+    for name in names:
+        rep = harness.replica(name)
+        st, ad = rep.engine.stats, rep.scheduler.admission
+        line = (f"[serve]   {name}: {st.requests} requests, remote "
+                f"fraction {st.remote_fraction:.2f} "
+                f"(target {harness.cluster.target(name):.2f}), "
+                f"shed {ad.shed}, degraded {ad.degraded}")
+        if rep.cache is not None:
+            line += (f", cache {rep.cache.stats.hits} hits "
+                     f"({rep.cache.stats.cross_hits} cross-replica)")
+        print(line)
+    b = harness.global_billing()["billing"]
+    print(f"[serve] cluster billing: {b['requests']} requests, "
+          f"{b['escalations']} escalations, {b['remote_calls']} remote "
+          f"calls, {b['cache_hits']} cache hits, "
+          f"${b['total_cost']:.4f} total")
+    cst = harness.cluster.state
+    gt = cst.global_target
+    gf = cst.global_ema_fraction
+    print(f"[serve] cluster budget: {cst.reconciles} reconciles "
+          f"(mode {cst.mode}), global target "
+          f"{'n/a' if gt is None else f'{gt:.3f}'}, realised fleet "
+          f"fraction {'n/a' if gf is None else f'{gf:.3f}'}, "
+          f"stale {list(cst.stale)}")
+    if harness.shared_cache is not None:
+        scs = harness.shared_cache.stats
+        print(f"[serve] shared cache: {scs.fills} fills, "
+              f"{scs.duplicate_fills} duplicate fills, "
+              f"{scs.waits} waits, {scs.steals} steals "
+              f"({len(harness.shared_cache)} entries)")
+    if harness.events is not None:
+        evc = harness.events.counts()
+        if evc:
+            print(f"[serve] events: {dict(sorted(evc.items()))}")
+    if harness.metrics is not None and args.metrics_dump:
+        if args.metrics_dump.endswith(".json"):
+            text = json.dumps(harness.metrics.snapshot(), indent=2,
+                              sort_keys=True) + "\n"
+        else:
+            text = harness.metrics.render_prometheus()
+        with open(args.metrics_dump, "w") as f:
+            f.write(text)
+        print(f"[serve] wrote metrics snapshot -> {args.metrics_dump}")
+    return ServeResult(responses, None, None, wall, harness=harness)
 
 
 def _report(args, cfg, eng, sched, router, responses, labels, wall) -> None:

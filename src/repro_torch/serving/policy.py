@@ -249,9 +249,11 @@ class ServeConfig:
     trace_capacity: int = 65536         # bounded TraceSink (spans kept)
     event_capacity: int = 8192          # bounded EventLog (events kept)
     # -- cluster scale-out (DESIGN.md §12) ------------------------------
-    # replicas > 1 (the cluster harness) and data_parallel (the serving
-    # mesh) belong to a later slice of the port and raise
-    # NotImplementedError here; the fields stay so configs parse alike.
+    # replicas > 1 runs N engines behind one logical cascade (shared
+    # response cache, shared router, cluster budget reconcile) via
+    # ``repro_torch.runtime.cluster.ClusterHarness``; data_parallel (the
+    # serving mesh) belongs to a later slice of the port and raises
+    # NotImplementedError here; the field stays so configs parse alike.
     replicas: int = 1
     data_parallel: bool = False
 
@@ -280,18 +282,6 @@ class ServeConfig:
             raise ValueError("admission_soft_ratio must be in [0, 1]")
         if self.replicas < 1:
             raise ValueError("replicas must be >= 1")
-        if self.tiers:
-            raise NotImplementedError(
-                "tiers: the N-tier ladder (runtime/hierarchy.py) is not "
-                "ported yet; it comes with the hierarchy/cluster slice")
-        if self.replicas > 1:
-            raise NotImplementedError(
-                "replicas > 1: the cluster harness (runtime/cluster.py) is "
-                "not ported yet; it comes with the hierarchy/cluster slice")
-        if self.data_parallel:
-            raise NotImplementedError(
-                "data_parallel: the serving mesh is not ported yet; it "
-                "comes with the launch/ slice")
         if self.tiers and self.remotes:
             raise ValueError("tiers and remotes are exclusive: a tier "
                              "ladder chains into ONE routed backend; mix "
@@ -319,11 +309,31 @@ class ServeConfig:
                              "cost_budget/default_policy/packing/remotes/"
                              "tiers/observability/admission_limit/"
                              "batching")
+        if self.data_parallel:
+            raise NotImplementedError(
+                "data_parallel: the serving mesh is not ported yet; it "
+                "comes with the launch/ slice")
 
     # -- component construction ----------------------------------------
     def build_router(self, remote_apply: Callable, **kw) -> RemoteRouter:
         """Registry of named backends around the deployment's remote
-        callable (one ``"remote"`` backend when no specs are given)."""
+        callable (one ``"remote"`` backend when no specs are given).
+        With ``tiers`` set, the specs chain into one ``CascadeStage``
+        head routed as a single logical backend (DESIGN.md §13);
+        ``remote_apply`` may be a single callable shared by every hop or
+        a mapping ``{tier_name: callable}``."""
+        if self.tiers:
+            from repro_torch.runtime.hierarchy import build_stage_chain
+            applies = (remote_apply if isinstance(remote_apply, dict)
+                       else {t.name: remote_apply for t in self.tiers})
+            head = build_stage_chain(
+                [dict(name=t.name, apply=applies[t.name],
+                      supervisor=t.supervisor, threshold=t.threshold,
+                      cost_per_request=t.cost_per_request,
+                      latency_s=t.latency_s) for t in self.tiers],
+                config=self.transport, **kw)
+            return RemoteRouter([head], policy=self.route_policy,
+                                replay_max=self.replay_max)
         specs = self.remotes or (RemoteSpec("remote"),)
         return RemoteRouter(
             [RemoteBackend(s.name, remote_apply, self.transport,

@@ -61,6 +61,7 @@ from repro_torch.kernels.maxconf.ref import maxconf_ref  # noqa: E402
 from repro_torch.kernels.mdsa.kernel import plan as mdsa_plan  # noqa: E402
 from repro_torch.kernels.mdsa.ops import mdsa_distance  # noqa: E402
 from repro_torch.kernels.mdsa.ref import mdsa_ref  # noqa: E402
+from repro_torch.kernels.profiling import kernel_events  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.kernel import CHUNK  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan  # noqa: E402
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref  # noqa: E402
@@ -209,7 +210,6 @@ def test_fused_head_gate_runs_one_kernel_and_allocates_scratch_once(
     and makes one allocation, its [2, B] output; the wide forms' merge
     scratch is made on the first call only, and the kernel leaves its
     tickets zero."""
-    from torch.profiler import ProfilerActivity, profile
     h, w, bias = head_inputs(dev, b, d, c, wdt)
     call = lambda: fused_head_kernel.fused_head_gate(h, w, bias,  # noqa: E731
                                                      "max_softmax")
@@ -222,12 +222,7 @@ def test_fused_head_gate_runs_one_kernel_and_allocates_scratch_once(
         == stats + 1
     for a, b_ in zip(first, again):         # deterministic merge order
         assert torch.equal(a, b_)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            call()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and e.count]
+    kern = kernel_events(call, calls=10)
     assert round(sum(e.count for e in kern) / 10) == 1
     assert all("head_gate_" in e.key for e in kern)
     plan = fused_head_kernel.head_plan(b, d, c, h.dtype, wdt)
@@ -318,15 +313,10 @@ def test_select_kernel_one_launch_and_limits(dev):
         gate_kernel.gate_select(conf, tt, nn, 4)
     with pytest.raises(ValueError, match="1 <= k"):
         gate_kernel.gate_select(conf[:8], tt, nn, 9)
-    from torch.profiler import ProfilerActivity, profile
     for b in (32, 4096):
         c = torch.from_numpy(planted_conf(b, 1)).to(dev)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                gate_kernel.gate_select(c, tt, nn, b)
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA") and e.count]
+        kern = kernel_events(
+            lambda: gate_kernel.gate_select(c, tt, nn, b), calls=10)
         assert round(sum(e.count for e in kern) / 10) == 1
         assert all("gate_select_" in e.key for e in kern)
 
@@ -445,8 +435,10 @@ def test_maxconf_kernel_matches_plain(dev, b, v, dtype, offset):
 def test_maxconf_and_gate_score_run_one_kernel_and_allocate_once(dev, b, c):
     """Each wrapper call runs one device kernel (the statistics pass, its
     epilogue included) and makes one allocation, its outputs: no
-    scratch and no second pass."""
-    from torch.profiler import ProfilerActivity, profile
+    scratch and no second pass. The trace is taken by
+    ``kernel_events``, which takes it again when the profiler hands back
+    no kernel event at all (on an H100, 0.1-0.4 empty sessions a second
+    of tracing, up to 3 in a row)."""
     x = torch.from_numpy(np.random.default_rng(c).standard_normal(
         (b, c)).astype(np.float32)).to(dev)
     calls = (lambda: maxconf_kernel.maxconf(x),
@@ -458,12 +450,7 @@ def test_maxconf_and_gate_score_run_one_kernel_and_allocate_once(dev, b, c):
         call()
         assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] \
             == stats + 1
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.key_averages()
-                if str(e.device_type).endswith("CUDA") and e.count]
+        kern = kernel_events(call, calls=10)
         # the profiler drops an event now and then: launches are rounded
         assert round(sum(e.count for e in kern) / 10) == 1
         assert all("vocab_stats_kernel" in e.key for e in kern)
@@ -965,3 +952,162 @@ def test_reduced_train_step_on_the_card(dev, arch, tol):
     torch.cuda.synchronize()
     assert state["step"] == 1 and np.isfinite(float(metrics["loss"]))
     assert launch_counts() == before
+
+
+# ------------------------------------------------------- the fleet runtime
+
+FLEET_ROWS, FLEET_NCLS, FLEET_GAP = 64, 8, 1e-3
+
+
+def fleet_tiers(dev):
+    """(local_apply, remote_apply) on ``dev``: the local tier a planted
+    logits table read by request index; the remote tier reduced yi-6b's
+    prefill (fp32, weights drawn on the CPU from one seed) whose first
+    logits jitter an oracle readout, as ``launch/serve.py``'s does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+    cfg = get_config("yi-6b").reduced()
+    params = tree_map(lambda a: a.to(dev), T.init_params(
+        cfg, torch.Generator().manual_seed(7)))
+    rng = np.random.default_rng(23)
+    labels = rng.integers(0, FLEET_NCLS, FLEET_ROWS)
+    table = rng.standard_normal((FLEET_ROWS, FLEET_NCLS)).astype(np.float32)
+    table[np.arange(FLEET_ROWS), labels] += rng.uniform(0.0, 4.0, FLEET_ROWS)
+    table = torch.from_numpy(table).to(dev)
+    oracle = (torch.eye(FLEET_NCLS)[torch.from_numpy(labels)] * 2.0).to(dev)
+    tokens = rng.integers(1, cfg.vocab_size, (FLEET_ROWS, 16))
+
+    @torch.no_grad()
+    def local_apply(idx):
+        return table[idx.long()]
+
+    @torch.no_grad()
+    def remote_apply(batch):
+        idx = torch.as_tensor(np.asarray(batch["idx"]), device=dev).long()
+        toks = torch.as_tensor(tokens, device=dev)[idx]
+        logits, _ = T.prefill(cfg, params, {"tokens": toks})
+        return oracle[idx] + logits[:, :FLEET_NCLS].float()
+
+    return local_apply, remote_apply
+
+
+def fleet_gaps(remote_apply, t_edge: float) -> None:
+    """The CPU remote confidences keep FLEET_GAP away from ``t_edge`` (so
+    the card and the CPU pick the same hop per row)."""
+    from repro_torch.core.supervisors import max_softmax
+    conf = max_softmax(remote_apply({"idx": np.arange(FLEET_ROWS)}))
+    assert float((conf.double() - t_edge).abs().min()) > FLEET_GAP, \
+        "inputs: a remote confidence too close to the edge threshold"
+
+
+def fleet_serve(dev, cfg, local_apply, remote_apply) -> tuple:
+    from repro_torch.serving import Request
+    eng, sched = cfg.build(local_apply, transport=cfg.build_router(
+        remote_apply), fallback=lambda r: -1, device=dev)
+    for i in range(FLEET_ROWS):
+        sched.submit(Request(uid=i, local_input=np.int64(i),
+                             remote_input={"idx": np.int64(i)}))
+    responses = sorted(sched.flush(), key=lambda r: r.uid)
+    eng.close()
+    torch.cuda.synchronize()
+    return ([(r.uid, r.prediction, r.source, r.disposition, r.backend,
+              r.cost) for r in responses],
+            {f: getattr(eng.stats, f) for f in BILLING},
+            {k: (u.remote_calls, u.cache_hits, u.transport_failures, u.cost)
+             for k, u in eng.stats.per_backend.items()})
+
+
+BILLING = ("requests", "escalations", "remote_calls", "cache_hits",
+           "transport_failures", "rejected", "total_cost")
+
+
+def test_tier_ladder_on_the_card_matches_the_cpu(dev):
+    """A 2-hop edge -> cloud ladder over reduced yi-6b, its local gate and
+    both hops' prefills on the card: every row reaches the same hop and
+    the billing is the CPU's."""
+    from repro_torch.serving import ServeConfig
+    cpu = fleet_tiers(torch.device("cpu"))
+    card = fleet_tiers(dev)
+    t_edge = 0.5
+    fleet_gaps(cpu[1], t_edge)
+    cfg = ServeConfig(batch_size=16, remote_fraction_budget=0.5,
+                      t_remote=0.0).with_overrides([
+        f"tiers=edge:0.001:0.1:{t_edge};cloud:0.0048:0.8",
+        "transport.timeout_s=300"])
+    before = launch_counts()["flash_attention"]
+    got = fleet_serve(dev, cfg, *card)
+    assert launch_counts()["flash_attention"] > before
+    want = fleet_serve(torch.device("cpu"), cfg, *cpu)
+    assert got == want
+    assert set(got[2]) == {"edge", "cloud"}
+
+
+def test_replica_harness_on_the_card_matches_the_cpu(dev):
+    """Two replicas on a virtual clock behind one router over reduced
+    yi-6b, with requests that recur across replicas: the fill feed (keys,
+    sources, owners) and the fleet billing on the card are the CPU's."""
+    from repro_torch.runtime import ClusterHarness, VirtualClock
+    from repro_torch.serving import Request, ServeConfig
+
+    def run(device, local_apply, remote_apply):
+        clock = VirtualClock()
+        cfg = ServeConfig(batch_size=8, remote_fraction_budget=0.25,
+                          t_remote=0.0, cache_size=256, adaptive=True,
+                          control_window=16, replicas=2).with_overrides(
+            ["transport.timeout_s=300"])
+        h = ClusterHarness(cfg, local_apply, transport=cfg.build_router(
+            remote_apply, clock=clock, sleep=clock.sleep),
+            fallback=lambda r: -1, clock=clock, seed=3,
+            reconcile_interval_s=0.5, device=device)
+        proto = np.random.default_rng(5).integers(0, 24, 96)
+        for i, j in enumerate(proto):
+            clock.advance_to(0.05 * i)
+            h.submit(h.names[i % 2], Request(
+                uid=i, local_input=np.int64(j),
+                remote_input={"idx": np.int64(j)}))
+            if (i + 1) % 16 == 0:
+                h.flush()
+        h.close()
+        torch.cuda.synchronize()
+        return ([(u.key, u.source, u.replica) for u in h.shared_cache.feed],
+                h.global_billing()["billing"],
+                h.shared_cache.stats.duplicate_fills)
+
+    got = run(dev, *fleet_tiers(dev))
+    want = run(torch.device("cpu"), *fleet_tiers(torch.device("cpu")))
+    assert got[2] == 0 and len(got[0]) > 0
+    assert got == want
+
+
+def test_replica_launcher_serves_on_the_card(dev, capsys):
+    """``repro_torch.launch.serve`` with ``--set replicas=2 --adaptive``
+    on the card takes its cluster branch: every uid answered once, no
+    duplicate fill, each remote call a fill or a redundant put, the
+    replicas' billing summing to ``cluster_billing``, one flash launch
+    per layer per remote window, and the report printed."""
+    from repro_torch.launch import serve
+    from repro_torch.runtime import cluster_billing
+    args = serve.parse_args(["--smoke", "--requests", "64", "--batch", "16",
+                             "--set", "replicas=2", "--adaptive",
+                             "--set", "transport.timeout_s=300"])
+    stack = serve.build_stack(args)
+    assert stack.device.type == "cuda"
+    before = launch_counts()
+    res = serve.run(args, stack)
+    torch.cuda.synchronize()
+    counts = {k: v - before[k] for k, v in launch_counts().items()}
+    h = res.harness
+    assert res.engine is None and h is not None
+    assert sorted(r.uid for r in res.responses) == list(range(64))
+    scs = h.shared_cache.stats
+    assert scs.duplicate_fills == 0
+    b = h.global_billing()["billing"]
+    assert b["requests"] == 64 and b["remote_calls"] > 0
+    assert b["remote_calls"] == scs.fills + scs.redundant_puts
+    assert h.global_billing() == cluster_billing(
+        {n: h.replica(n).engine.stats for n in h.names})
+    windows = sum(bk.stats.windows for bk in h.router)
+    assert counts["flash_attention"] == stack.rcfg.num_layers * windows
+    assert counts["gate_score"] > 0 and counts["gate_select"] > 0
+    assert "[serve] cluster billing: 64 requests" in capsys.readouterr().out
