@@ -54,7 +54,16 @@ toolkit. In order, it
    bit for bit);
    and the remote router under a seeded 50% brownout in fifo and in
    streaming completion (every failure an injected one, the two modes
-   billing alike);
+   billing alike); then early emit on the same yi-6b: 256 requests
+   through the continuous batcher (streaming, pipeline depth 2), early
+   emit off, on, off, on, then with one transport worker off and on,
+   then the window drain at depth 1 and 2, every run answering and
+   billing alike with the same kernel launches, one emit per window and
+   no triple left stored (each run's req/s and remote window latency,
+   the trusted-local rows' hand-back and the lag from dispatch to the
+   gate triple on the host), and one profiled continuous run: the
+   device's busy share, the streams of the local step and the remote
+   prefill, and whether their kernels overlap;
 7. mirrors ``benchmarks/supervisor_comparison.py`` on the card: trains a
    surrogate, fits MDSA on its training-set activations, scores the test
    set through the MDSA kernel and prints every supervisor's AUC-ROC;
@@ -83,7 +92,11 @@ toolkit. In order, it
    tokens/s, MFU and peak memory (``train``); and the same for
    rwkv6-1.6b and hubert-xlarge (8 x 128 frame embeddings) at full
    width, 2 + 4 steps (``train_rwkv6``, ``train_hubert``);
-10. prints one ``{"kernels": [...]}`` line and, last, one
+10. runs each of the six ``repro_torch.examples`` through its ``main`` on
+   the card with its own assertions (the training example at its ~100M
+   scale for 50 steps, its loss falling; the long-context example's RWKV6
+   scan and maxconf launches);
+11. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line. Full results are also
@@ -387,6 +400,12 @@ def check_gate(dev, b: int, c: int, seed: int, cold: bool = False) -> dict:
     select_dev = profiled("gate_select",
                           lambda: gk.gate_select(conf, tt, nn, b))
     select_plain = time_ms(lambda: select_ref(conf, tt, nn, b))
+    # library yardstick: torch.topk of the confidences with the rows the
+    # select may not take (padding, at or above t_local) masked to +inf
+    # (no -1 fill, no promised tie order: not the same function)
+    rows_ = torch.arange(b, device=dev)
+    masked = torch.where((rows_ < n_valid) & (conf < tt), conf, math.inf)
+    select_lib = time_ms(lambda: torch.topk(masked, b, largest=False))
     sb, sby = bound(b * c * 4 + b * 8, 6.0 * b * c, "fp32")
     lb, lby = bound(b * 4 + 8 + b * 4, 4.0 * b * b, "fp32")
     rows = [
@@ -399,7 +418,9 @@ def check_gate(dev, b: int, c: int, seed: int, cold: bool = False) -> dict:
         {"kernel": "gate_select", "shape": [b], "dtype": "float32",
          "max_abs_err": float((got["idx"] - want["idx"]).abs().max()),
          "kernel_ms": select_ms, **select_dev, "plain_ms": select_plain,
-         "library_ms": None, "bound_ms": lb, "bound_by": lby},
+         "library_ms": select_lib,
+         "library": "torch.topk(masked, B, largest=False)",
+         "bound_ms": lb, "bound_by": lby},
     ]
     for r in rows:
         log(r)
@@ -469,9 +490,9 @@ def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int,
     the plain version, as a share of that limit (bounded by it). Bound:
     bytes, or the operations of the kernel's form (bf16 w: three bf16
     tensor-core products for an f32 hidden, one for bf16; f32 w: fp32),
-    with the fp32 CUDA-core figure beside it; library (bf16 w): one
-    cuBLAS addmm of the bf16 hidden, w and bias, a byte yardstick (not
-    the same function)."""
+    with the fp32 CUDA-core figure beside it; library: one addmm of the
+    hidden, w and bias in w's dtype, a byte yardstick (not the same
+    function)."""
     from repro_torch.kernels.fused_head_gate import kernel as fk
     from repro_torch.kernels.fused_head_gate import ops as fops
     from repro_torch.kernels.fused_head_gate.ref import (fused_head_gate_ref,
@@ -536,11 +557,11 @@ def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int,
         return max_softmax(logits), logits.argmax(-1).int()
 
     p_ms = time_ms(plain, samples=21, inner=3)
-    lib_ms = None
     if w_dtype == torch.bfloat16:
         hb, bb = hd_.bfloat16(), bd_.bfloat16()
-        lib_ms = time_ms(lambda: torch.addmm(bb, hb, wd_), samples=21,
-                         inner=3)
+    else:
+        hb, bb = hd_.float(), bd_
+    lib_ms = time_ms(lambda: torch.addmm(bb, hb, wd_), samples=21, inner=3)
     nbytes = (b * d * hd_.element_size() + d * c * wd_.element_size()
               + c * 4 + b * 8)
     flops = 2.0 * b * d * c
@@ -555,7 +576,7 @@ def check_fused_head(dev, b: int, d: int, c: int, w_dtype, seed: int,
            "max_abs_err": err, "share_of_limit_vs_float64": vs64,
            "kernel_ms": k_ms, **head_dev,
            "plain_ms": p_ms, "library_ms": lib_ms,
-           "library": "addmm(bias, hidden, w) in bf16" if lib_ms else None,
+           "library": f"addmm(bias, hidden, w) in {str(wd_.dtype)[6:]}",
            "bound_ms": bnd, "bound_by": by,
            "bound_fp32_cuda_core_ms": bound(nbytes, flops, "fp32")[0]}
     log(row)
@@ -1850,6 +1871,277 @@ def serve_chaos_phase(dev, stack) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# early emit and the gate triple's non-blocking fetch; the six examples
+# ----------------------------------------------------------------------------
+
+EMIT_SETS = ["batching=continuous", "completion_mode=streaming",
+             "pipeline_depth=2", "observability=True", FLEET_TIMEOUT]
+PROFILED_REQUESTS = 64          # the profiled continuous run: 2 windows
+
+
+def remote_window_ms(router) -> float | None:
+    """Mean latency of a transport window (at most 8 rows) over the
+    router's backends, in ms."""
+    lat = [b.stats.mean_latency_s for b in router
+           if b.stats.mean_latency_s is not None]
+    return float(np.mean(lat)) * 1e3 if lat else None
+
+
+def quantiles_ms(xs: list) -> dict:
+    if not xs:
+        return {"n": 0, "p50_ms": None, "p99_ms": None}
+    a = np.asarray(xs, dtype=np.float64) * 1e3
+    return {"n": len(xs), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def early_emit_run(stack, cfg, early_emit: bool, n: int) -> dict:
+    """The stack's first ``n`` requests through the continuous batcher of
+    ``cfg`` (observability on, no response cache), early emit on or off.
+    Stamps when each window's triple reached the emitter's callback; the
+    spans give each window's dispatch and gate stamps and each row's
+    enqueue and hand-back."""
+    from repro_torch.serving import CascadeEngine, CostModel, Request
+    router = cfg.build_router(stack.remote_apply)
+    # what from_config builds from cfg (no controller, no cache), with
+    # early emit set rather than picked by the batching mode
+    assert cfg.build_controller() is None
+    eng = CascadeEngine(
+        stack.local_apply, batch_size=cfg.batch_size,
+        remote_fraction_budget=cfg.remote_fraction_budget,
+        t_remote=cfg.t_remote, cost=cfg.cost or CostModel(),
+        supervisor=cfg.supervisor, transport=router,
+        default_policy=cfg.default_policy,
+        observability=cfg.build_observability(), early_emit=early_emit,
+        device=stack.device)
+    if cfg.t_local is not None:
+        eng.set_local_threshold(cfg.t_local)
+    sched = cfg.build_scheduler(eng, fallback=lambda r: -1)
+    assert eng.early_emit == early_emit
+    landed = {}
+    if early_emit:
+        inner = eng._emitter._emit
+
+        def stamped(seq, *triple):
+            landed[seq] = time.perf_counter()
+            inner(seq, *triple)
+
+        eng._emitter._emit = stamped
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            sched.submit(Request(
+                uid=i, local_input=stack.local_toks[i],
+                remote_input={"tokens": stack.toks[i] % stack.rcfg.vocab_size,
+                              "idx": np.int32(i)}))
+        responses = sched.flush()
+    finally:
+        eng.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spans = eng.observability.trace.spans()
+    windows = eng._seq
+    assert eng._gate_emits == (windows if early_emit else 0), \
+        (eng._gate_emits, windows)
+    assert eng._gate_results == {}, sorted(eng._gate_results)
+    assert eng._emitter is None or not eng._emitter.alive
+    stamps = {}
+    for sp in spans:
+        st = dict(sp["stages"])
+        stamps[sp["window"]] = (st["dispatch"], st["gate"])
+    locals_ = [sp["stages"][-1][1] - sp["stages"][0][1] for sp in spans
+               if sp["disposition"] == "LOCAL"]
+    wait_lag = [g - d for d, g in stamps.values()]
+    emit_lag = [landed[w] - d for w, (d, _) in stamps.items()
+                if w in landed]
+    taken = sum(landed[w] <= g for w, (_, g) in stamps.items()
+                if w in landed)
+    return {"responses": response_rows(sorted(responses,
+                                              key=lambda r: r.uid)),
+            "billing": billing_of(eng.stats),
+            "per_backend": per_backend_of(eng.stats),
+            "remote_ms": remote_window_ms(router),
+            "windows": windows, "emits": eng._gate_emits,
+            "wall_s": wall, "req_per_s": n / wall,
+            "trusted_local_handback": quantiles_ms(locals_),
+            "dispatch_to_host_half_triple": quantiles_ms(wait_lag),
+            "dispatch_to_emit": quantiles_ms(emit_lag),
+            "emitted_before_host_half": taken}
+
+
+def kernel_timeline(fn) -> tuple[list, float]:
+    """One call of ``fn`` (ending in a synchronize) under torch.profiler:
+    its device kernels as (name, stream, start us, end us) from the
+    exported trace, and the traced wall time in ms. A trace with no
+    kernel is taken again after the profiling module's pause, as
+    ``kernel_events`` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.profiling import ATTEMPTS, RETRY_PAUSE_S
+    path = ROOT / "build" / "early_emit_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    for attempt in range(1, ATTEMPTS + 1):
+        if attempt > 1:
+            time.sleep(RETRY_PAUSE_S)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(str(path))
+        trace = json.loads(path.read_text())
+        events = trace["traceEvents"] if isinstance(trace, dict) else trace
+        kern = [(e["name"], e.get("args", {}).get("stream"), e["ts"],
+                 e["ts"] + e.get("dur", 0)) for e in events
+                if e.get("cat") == "kernel"]
+        if kern:
+            if attempt > 1:
+                RESULTS.setdefault("profiler_retries", []).append(
+                    {"timeline": True, "attempts": attempt})
+            return kern, wall_ms
+    raise RuntimeError(f"no kernel traced in {ATTEMPTS} captures")
+
+
+def union_us(spans: list) -> float:
+    total, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def overlap_profile(stack, cfg) -> dict:
+    """One profiled continuous run of two windows with early emit on: the
+    device's busy share, the streams the gate kernels (the local step)
+    and flash attention (the remote prefill) ran on, and how long kernels
+    of the two ran at once."""
+    def run():
+        early_emit_run(stack, cfg, True, PROFILED_REQUESTS)
+
+    run()                               # warm
+    kern, wall_ms = kernel_timeline(run)
+    local_streams = {s for n, s, _, _ in kern
+                     if "vocab_stats" in n or "gate_select" in n}
+    remote_streams = {s for n, s, _, _ in kern if "flash" in n}
+    assert local_streams and remote_streams, (local_streams, remote_streams)
+    loc = [(a, b) for n, _, a, b in kern
+           if "vocab_stats" in n or "gate_select" in n]
+    rem = [(a, b) for n, _, a, b in kern if "flash" in n]
+    both = union_us(loc) + union_us(rem) - union_us(loc + rem)
+    busy = union_us([(a, b) for _, _, a, b in kern])
+    t0 = min(a for _, _, a, _ in kern)
+    t1 = max(b for _, _, _, b in kern)
+    return {"requests": PROFILED_REQUESTS, "traced_wall_ms": wall_ms,
+            "device_busy_ms": busy / 1e3,
+            "device_busy_share": busy / 1e3 / wall_ms,
+            "kernel_span_ms": (t1 - t0) / 1e3,
+            "local_streams": sorted(map(str, local_streams)),
+            "remote_streams": sorted(map(str, remote_streams)),
+            "local_kernels": len(loc), "remote_kernels": len(rem),
+            "local_remote_overlap_ms": both / 1e3,
+            "overlap": both > 0}
+
+
+def serve_early_emit_phase(dev, stack) -> dict:
+    """The yi-6b serve stack's 256 requests through the continuous batcher
+    (streaming, pipeline depth 2), early emit off, on, off, on; then the
+    same with one transport worker (off, on), so remote windows are
+    launched from one thread at a time; then the plain window path and
+    the streaming window drain at depth 2. Every run answers alike and
+    bills alike (a cacheless continuous run bills as the window drain),
+    with the same kernel launches; each early-emit run has one emit per
+    dispatched window and none left stored. Each run's req/s and mean
+    remote window latency; the continuous runs' trusted-local hand-back
+    and the lag from dispatch to the triple on the host (the emitter's
+    and the host half's); one profiled continuous run."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    n = FLEET_REQUESTS
+    runs = []
+    for workers, flags in ((None, (False, True, False, True)),
+                           (1, (False, True))):
+        cfg = stack.cfg.with_overrides(EMIT_SETS + (
+            [f"transport.max_concurrent={workers}"] if workers else []))
+        for flag in flags:
+            run, counts = launches_of(lambda: early_emit_run(
+                stack, cfg, flag, n))
+            run.update(early_emit=flag, launches=counts,
+                       transport_workers=cfg.transport.max_concurrent)
+            assert [r[0] for r in run["responses"]] == list(range(n))
+            assert counts["gate_score"] == run["windows"] > 0
+            assert counts["gate_select"] == run["windows"]
+            runs.append(run)
+    base = stack.cfg.with_overrides([FLEET_TIMEOUT])
+    drains = {}
+    for name, drain in (("window", base), ("streaming_window",
+                        base.with_overrides(["pipeline_depth=2",
+                                             "completion_mode=streaming"]))):
+        router = drain.build_router(stack.remote_apply)
+        (rows, eng, wall), counts = launches_of(lambda: serve_with_router(
+            stack, drain, router, n))
+        assert not eng.early_emit
+        drains[name] = {"responses": response_rows(rows),
+                        "billing": billing_of(eng.stats),
+                        "per_backend": per_backend_of(eng.stats),
+                        "launches": counts, "req_per_s": n / wall,
+                        "wall_s": wall,
+                        "remote_ms": remote_window_ms(router)}
+    for r in runs[1:] + list(drains.values()):
+        for key in ("responses", "billing", "per_backend", "launches"):
+            assert r[key] == runs[0][key], f"a run differs in {key}"
+    out = {"requests": n, "windows": runs[0]["windows"],
+           "billing": runs[0]["billing"], "launches": runs[0]["launches"],
+           "runs": [{k: r[k] for k in (
+               "early_emit", "transport_workers", "req_per_s", "wall_s",
+               "remote_ms", "emits", "trusted_local_handback",
+               "dispatch_to_host_half_triple", "dispatch_to_emit",
+               "emitted_before_host_half")}
+               for r in runs],
+           **{name: {k: d[k] for k in ("req_per_s", "wall_s", "remote_ms")}
+              for name, d in drains.items()},
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    out["profile"] = overlap_profile(stack,
+                                     stack.cfg.with_overrides(EMIT_SETS))
+    log({"phase": "serve_early_emit", **out})
+    return out
+
+
+EXAMPLE_ARGV = {"train_surrogate": [
+    "--scale", "100m", "--steps", "50",
+    "--checkpoint", str(ROOT / "build" / "surrogate_ckpt.msgpack")]}
+
+
+def examples_phase(dev) -> dict:
+    """Each of ``repro_torch.examples`` through its ``main`` on the card,
+    in process, with its own assertions: the training example at the
+    ~100M-parameter scale for 50 steps (its loss must fall), the others
+    at the JAX examples' sizes. Records each one's seconds and kernel
+    launches."""
+    import importlib
+    out = {}
+    for name in ("quickstart", "serve_cascade", "adaptive_cascade",
+                 "observability_demo", "train_surrogate",
+                 "generate_long_context"):
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        t0 = time.perf_counter()
+        res, counts = launches_of(lambda: mod.main(
+            ["--device", dev.type] + EXAMPLE_ARGV.get(name, [])))
+        out[name] = {"seconds": time.perf_counter() - t0,
+                     "launches": {k: v for k, v in counts.items() if v}}
+        if name == "generate_long_context":
+            assert counts["rwkv6_scan"] > 0 and counts["maxconf"] > 0
+            out[name]["conf_min"] = res["conf_min"].tolist()
+        elif name == "train_surrogate":
+            assert res["ce_last"] < res["ce_first"]
+            out[name].update(ce_first=res["ce_first"], ce_last=res["ce_last"])
+        elif name in ("adaptive_cascade", "observability_demo"):
+            assert counts["gate_score"] > 0 and counts["gate_select"] > 0
+    log({"phase": "examples", **out})
+    return out
+
+
 def top2_gap(logits: torch.Tensor) -> torch.Tensor:
     top = torch.topk(logits.float(), 2, dim=-1).values
     return top[:, 0] - top[:, 1]
@@ -2478,6 +2770,8 @@ def main() -> int:
     lap("serve_cluster")
     phases["serve_chaos"] = serve_chaos_phase(dev, stack)
     lap("serve_chaos")
+    phases["serve_early_emit"] = serve_early_emit_phase(dev, stack)
+    lap("serve_early_emit")
     phases["supervisors"] = sup = supervisor_phase(dev)
     lap("supervisors")
     # free yi-6b, so that rwkv6's phases measure their own peak memory
@@ -2511,6 +2805,8 @@ def main() -> int:
     phases["train_hubert"] = train_phase(dev, AUDIO_ARCH, 2, 4,
                                          "train_hubert")
     lap("train_hubert")
+    phases["examples"] = examples_phase(dev)
+    lap("examples")
     log({"phase": "seconds", **seconds})
     line = kernels_line(kern, serve, gen, rwkv_gen, sup)
     RESULTS["kernels"] = line["kernels"]

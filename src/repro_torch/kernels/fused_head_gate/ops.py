@@ -6,6 +6,10 @@ kernel, or raises.
 ``LAUNCHES`` counts the fused kernel's launches (the select launch counts
 under ``confidence_gate.ops.LAUNCHES``).
 
+Early emit composes as in the standalone gate: pass ``emit``/``emit_tag``
+(see ``confidence_gate.ops``; the dict then also holds ``fetch``); it adds
+a copy, not a launch.
+
 ``FusedLocalHead`` is the engine-facing carrier: a local model split as
 ``trunk`` (inputs -> hidden [B, D]) plus the final projection ``(w
 [D, C], bias [C])``. ``CascadeEngine`` accepts it wherever a plain
@@ -22,6 +26,7 @@ import torch
 from repro_torch.kernels.build import count_launch, refuse_grad
 from repro_torch.kernels.confidence_gate.ops import select
 from repro_torch.kernels.fused_head_gate import kernel
+from repro_torch.kernels.gate_fetch import emit_triple
 from repro_torch.kernels.fused_head_gate.ref import (fused_head_gate_ref,
                                                      head_logits)
 
@@ -61,17 +66,28 @@ class FusedLocalHead:
 def fused_head_gate(hidden: torch.Tensor, w: torch.Tensor,
                     bias: torch.Tensor | None = None, t_local=None,
                     n_valid=None, *, supervisor="max_softmax",
-                    k: int | None = None) -> dict[str, torch.Tensor]:
+                    k: int | None = None, emit=None,
+                    emit_tag=None) -> dict[str, torch.Tensor]:
     """hidden [B, D], w [D, C], bias [C]|None -> {conf [B], pred [B],
     idx [k]} without materialising the [B, C] logits in device memory.
-    Same contract as ``confidence_gate``."""
+    Same contract as ``confidence_gate``, early emit included."""
     b, d = hidden.shape
     if d != w.shape[0]:
         raise ValueError(f"hidden dim {d} != head dim {w.shape[0]}")
     k = b if k is None else min(int(k), b)
     if hidden.device.type == "cpu":
-        return fused_head_gate_ref(hidden, w, bias, t_local, n_valid,
-                                   supervisor=supervisor, k=k)
+        out = fused_head_gate_ref(hidden, w, bias, t_local, n_valid,
+                                  supervisor=supervisor, k=k)
+    else:
+        out = _head_kernels(hidden, w, bias, t_local, n_valid, supervisor,
+                            k)
+    if emit is not None:
+        out["fetch"] = emit_triple(emit, emit_tag, out)
+    return out
+
+
+def _head_kernels(hidden, w, bias, t_local, n_valid, supervisor, k: int):
+    """The fused head-gate kernel and the select on CUDA tensors."""
     if callable(supervisor):
         raise ValueError("the fused head gate scores the softmax family "
                          "only; pass a callable supervisor to "

@@ -55,10 +55,22 @@ remains as the low-level composition-root API (tests, bespoke wiring).
 Port notes (PyTorch on one GPU): the local tier and its gate run on the
 engine's ``device`` (default ``"cuda"``; a missing GPU raises unless the
 caller asks for ``"cpu"``). The engine moves the scheduler's numpy local
-batch there, with ``t_local``/``n_valid`` as 0-d device tensors; the gate
-triple comes back with a synchronous ``.cpu()``; remote logits are scored
-on the host as CPU tensors. ``jax.jit`` has no counterpart: the steps are
-plain callables. Early emit and the serving mesh are not ported yet.
+batch there, with ``t_local``/``n_valid`` as 0-d device tensors. The
+gate triple comes back through ``kernels.gate_fetch``: a pinned
+non-blocking copy queued at dispatch right behind the gate, with an event
+recorded after it, which the host half waits on. So the copy never waits
+behind a remote prefill that a transport thread queues later.
+Remote logits are scored on the host as CPU tensors. ``jax.jit`` has no
+counterpart: the steps are plain callables. The serving mesh is not
+ported yet.
+
+Early emit (DESIGN.md §11): with ``early_emit`` on, an ``Emitter``
+thread waits on each window's event and lands the triple in
+``gate_result(seq)`` the moment the copy completes, waking the streaming
+drain; the host half takes it from there, or waits on the event itself
+when it comes first. ``"auto"`` (what ``from_config`` passes for
+``batching="continuous"``) arms it exactly when the engine's device is
+CUDA, whose dispatch is asynchronous as the TPU's is.
 
 Observability (DESIGN.md §9): construct with ``observability=`` (or
 ``ServeConfig(observability=True)``) and the engine stamps a per-window
@@ -96,6 +108,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.confidence_gate.ops import confidence_gate
 from repro_torch.kernels.fused_head_gate.ops import (FusedLocalHead,
                                                      fused_head_gate)
+from repro_torch.kernels.gate_fetch import Emitter, start_fetch
 from repro_torch.runtime.observability import (EV_BACKEND_AGREEMENT,
                                                EV_DEADLINE_DOWNGRADE,
                                                EV_POLICY_DOWNGRADE,
@@ -323,7 +336,8 @@ def make_local_step(local_apply: Callable, supervisor="max_softmax"):
     return step
 
 
-def make_gated_local_step(local_apply: Callable, supervisor="max_softmax"):
+def make_gated_local_step(local_apply: Callable, supervisor="max_softmax",
+                          emit=None):
     """Local tier fused with the confidence gate: supervisor scoring +
     thresholded ascending escalation ranking happen on the device, and
     only the compact ``(conf [B], pred [B], idx [B])`` triple crosses the
@@ -336,18 +350,31 @@ def make_gated_local_step(local_apply: Callable, supervisor="max_softmax"):
     When ``local_apply`` is a ``FusedLocalHead`` the final projection is
     folded into the gate's scoring pass (kernels/fused_head_gate) so
     full-vocab logits never round-trip through device memory.
+
+    ``emit`` opts into early emit (DESIGN.md §11): the step gains a
+    trailing ``seq`` argument and the gate hands its triple to
+    ``emit(seq, conf, pred, idx)`` on the host once it lands (a
+    ``gate_fetch.Emitter`` on CUDA tensors; see ``confidence_gate.ops``);
+    the output then also holds ``fetch``, the copy that ``emit`` waits on.
     """
     fused = isinstance(local_apply, FusedLocalHead)
 
     @torch.no_grad()
-    def step(local_batch, t_local, n_valid):
+    def gated(local_batch, t_local, n_valid, **emit_kw):
         if fused:
             h = local_apply.trunk(local_batch)
             return fused_head_gate(h, local_apply.w, local_apply.bias,
-                                   t_local, n_valid, supervisor=supervisor)
+                                   t_local, n_valid, supervisor=supervisor,
+                                   **emit_kw)
         logits = local_apply(local_batch)
         return confidence_gate(logits, t_local, n_valid,
-                               supervisor=supervisor)
+                               supervisor=supervisor, **emit_kw)
+
+    if emit is None:
+        return gated
+
+    def step(local_batch, t_local, n_valid, seq):
+        return gated(local_batch, t_local, n_valid, emit=emit, emit_tag=seq)
 
     return step
 
@@ -409,7 +436,7 @@ class _InFlight:
     abs_deadline: float | None = None
     early: list = field(default_factory=list)  # rows decidable at host half
     # -- dispatch half (device) ----------------------------------------
-    gate_dev: Any = None        # un-fetched device gate output
+    gate_fetch: Any = None      # the gate triple's PendingTriple
     remote_batch: Any = None    # batch["remote"], held until the host half
     gate_done: bool = False     # gate half ran (conf/pred/idx pinned)
     host_done: bool = False
@@ -542,22 +569,30 @@ class CascadeEngine:
         self.observability = None
         if observability is not None:
             observability.install(self)
-        # in-kernel early emit (DESIGN.md §11) surfaces the gate triple
-        # through a host callback; its port (an event plus a host poll) is
-        # a later slice, so "auto" resolves to off and True raises
-        if early_emit is True:
-            raise NotImplementedError(
-                "early_emit: the in-kernel early emit is not ported yet "
-                "(it comes as an event plus a host poll in a later slice)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh: the data-parallel serving mesh is not ported yet")
         self.device = resolve_device(device)
+        # early emit (DESIGN.md §11): an Emitter thread lands each
+        # window's gate triple in _gate_results as its copy completes.
+        # "auto" arms it where dispatch is asynchronous (CUDA, as JAX arms
+        # it on a TPU); on the CPU the triple is on the host as soon as
+        # the step returns. It never changes what is served: unarmed or
+        # late, the host half waits on the copy's event itself.
+        if early_emit == "auto":
+            early_emit = self.device.type == "cuda"
+        self.early_emit = bool(early_emit) and transport is not None
+        self._gate_emits = 0            # telemetry: triples emitted
+        self._gate_lock = threading.Lock()
+        self._gate_results: dict[int, tuple] = {}
+        self._committed_seq = 0         # emits at or below it are stale
+        self._emitter = Emitter(self._on_gate) if self.early_emit else None
         if transport is None:
             self._step = make_cascade_step(
                 local_apply, remote_apply, self.capacity, supervisor)
         else:
-            self._local_step = make_gated_local_step(local_apply, supervisor)
+            self._local_step = make_gated_local_step(
+                local_apply, supervisor, emit=self._emitter)
 
     # -- ServeConfig construction (DESIGN.md §8) -----------------------
     _UNSET = object()
@@ -578,7 +613,8 @@ class CascadeEngine:
         from the config unless overridden (pass ``controller=None``/
         ``cache=None``/``observability=None``/``mesh=None`` to force
         them off — the cluster harness overrides all four per replica,
-        DESIGN.md §12)."""
+        DESIGN.md §12). Early emit is ``"auto"`` under continuous
+        batching and off otherwise."""
         if config.fused:
             eng = cls(local_apply, remote_apply,
                       batch_size=config.batch_size,
@@ -616,6 +652,29 @@ class CascadeEngine:
         if config.t_local is not None:
             eng.set_local_threshold(config.t_local)
         return eng
+
+    # -- early emit (DESIGN.md §11) --------------------------------------
+    def _on_gate(self, seq, conf, pred, idx) -> None:
+        """Emitter target: window ``seq``'s gate triple just landed on the
+        host. Runs on the emitter thread, so it only stores and signals;
+        consumers poll ``gate_result``. A triple of a window already
+        committed is counted and dropped (the host half waited on the
+        event first, and the commit has swept)."""
+        with self._gate_lock:
+            if int(seq) > self._committed_seq:
+                self._gate_results[int(seq)] = (np.array(conf),
+                                                np.array(pred),
+                                                np.array(idx))
+            self._gate_emits += 1
+        self._ready.set()
+
+    def gate_result(self, seq: int):
+        """The early-emitted gate triple for window ``seq`` (``(conf,
+        pred, idx)`` numpy arrays), or None if it has not landed yet.
+        Entries are consumed by the window's host half and swept at
+        commit; callers must treat the arrays as read-only."""
+        with self._gate_lock:
+            return self._gate_results.get(seq)
 
     def set_remote_threshold(self, t: float) -> None:
         """Runtime reconfiguration (paper §4.5)."""
@@ -846,16 +905,24 @@ class CascadeEngine:
         t_local = self.t_local
         if self.controller is not None and self.controller.t_local is not None:
             t_local = self.controller.t_local
-        # 0-d device scalars: a new threshold is data, not a new launch
+        # 0-d device scalars: a new threshold is data, not a new launch.
+        # The triple's copy is queued right behind the gate, ahead of
+        # anything a transport thread queues later. With early emit the
+        # gate starts the copy and hands it to the emitter; the host half
+        # waits on that same copy
         dev = self.device
+        self._seq += 1
         t = torch.tensor(np.inf if t_local is None else t_local,
                          dtype=torch.float32, device=dev)
         n = torch.tensor(real, dtype=torch.int32, device=dev)
-        gate_dev = self._local_step(to_device(batch["local"], dev), t, n)
-        self._seq += 1
+        x = to_device(batch["local"], dev)
+        if self.early_emit:
+            fetch = self._local_step(x, t, n, self._seq)["fetch"]
+        else:
+            fetch = start_fetch(self._local_step(x, t, n))
         fl = _InFlight(seq=self._seq, t0=t0, b=b, real=real,
                        asynchronous=asynchronous, capacity=capacity,
-                       gate_dev=gate_dev, remote_batch=batch["remote"],
+                       gate_fetch=fetch, remote_batch=batch["remote"],
                        policies=policies, t_enq=t_enq,
                        policed=(_any_policy(policies)
                                 or self.default_policy is not None))
@@ -869,19 +936,21 @@ class CascadeEngine:
     # -- runtime path: host half ---------------------------------------
     def _host_gate(self, fl: _InFlight) -> None:
         """The CHEAP half of the host work: land the gate triple on the
-        host (device fetch), pin the escalation set
+        host (early-emit reuse or the fetch's wait), pin the escalation set
         and run the per-request policy pass. After this every locally-
         trusted row is fully decidable — the continuous scheduler calls
         it via ``flush_gate`` so those rows hand back BEFORE the
         escalations' cache/routing/transport submission (DESIGN.md
         §11)."""
-        # synchronous fetch of the compact triple (a pinned non-blocking
-        # copy plus an event is later work)
-        gate = {k: v.cpu().numpy() for k, v in fl.gate_dev.items()}
-        fl.conf = gate["conf"]
-        fl.local_pred = gate["pred"]
-        cand = gate["idx"]
-        fl.gate_dev = None
+        emitted = self.gate_result(fl.seq) if self.early_emit else None
+        # the emitter already landed this window's triple, or the copy
+        # queued at dispatch is waited on here (its event, never a read of
+        # the pinned buffers before it)
+        conf, pred, cand = (emitted if emitted is not None
+                            else fl.gate_fetch.wait())
+        fl.gate_fetch = None
+        fl.conf = np.asarray(conf)
+        fl.local_pred = np.asarray(pred)
         fl.pred = fl.local_pred.copy()
         cand = np.asarray(cand)
         cand = cand[cand >= 0]          # eligible rows, ascending by conf
@@ -1360,6 +1429,13 @@ class CascadeEngine:
                                     fl.remote_conf[:fl.real],
                                     cost=window_cost,
                                     policy_blocked=fl.blocked)
+        if self.early_emit:
+            # sweep the emitted triple (the host half may have waited on
+            # the event before the emitter stored it); a later emit for
+            # this window is dropped by _on_gate
+            with self._gate_lock:
+                self._gate_results.pop(fl.seq, None)
+                self._committed_seq = fl.seq
         return fl.result
 
     def _publish_commit(self, fl: _InFlight, window_cost: float,
@@ -1417,12 +1493,33 @@ class CascadeEngine:
         """Drain any in-flight pipelined/streaming windows (their results
         are accounted but discarded) and shut down every backend's thread
         pool. Half-finalized streaming runs drain too: already-finalized
-        windows just commit, the rest finalize first. Idempotent; a no-op
-        on the fused path."""
-        while self._inflight:
-            self.complete_next()
-        if self.router is not None:
-            self.router.shutdown(wait=wait)
+        windows just commit, the rest finalize first; then the early-emit
+        watcher is joined (raising what it kept). Idempotent; a no-op on
+        the fused path."""
+        try:
+            while self._inflight:
+                self.complete_next()
+        except BaseException as exc:
+            self._close_emitter(exc)
+            raise
+        else:
+            self._close_emitter(None)
+        finally:
+            if self.router is not None:
+                self.router.shutdown(wait=wait)
+
+    def _close_emitter(self, drain_error: BaseException | None) -> None:
+        """Join the early-emit watcher. What it kept is raised, unless the
+        drain already failed: the drain's exception stays the one raised,
+        with the watcher's as a note."""
+        if self._emitter is None:
+            return
+        try:
+            self._emitter.close()
+        except BaseException as err:
+            if drain_error is None:
+                raise
+            drain_error.add_note(f"early-emit watcher: {err!r}")
 
     def __enter__(self) -> "CascadeEngine":
         return self

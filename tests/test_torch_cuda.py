@@ -1111,3 +1111,156 @@ def test_replica_launcher_serves_on_the_card(dev, capsys):
     assert counts["flash_attention"] == stack.rcfg.num_layers * windows
     assert counts["gate_score"] > 0 and counts["gate_select"] > 0
     assert "[serve] cluster billing: 64 requests" in capsys.readouterr().out
+
+
+# ------------------------------------- the gate triple's fetch, early emit
+
+def queue_work(dev):
+    """Some milliseconds of matmuls on the current stream, so that what is
+    queued behind them is still in flight when the host looks."""
+    a = torch.full((2048, 2048), 1e-3, device=dev)
+    for _ in range(8):
+        a = a @ a
+    return a
+
+
+def window_inputs(kind: str, dev, rng, n: int) -> list:
+    """``n`` windows' gate inputs on the card, uploaded up front (an
+    upload from pageable memory waits for the stream): [32 x 8] logits,
+    or a [32 x 32] hidden and a [32 x 8] head."""
+    def up(shape, scale):
+        return torch.from_numpy((rng.normal(0, 1.0, shape) * scale).astype(
+            np.float32)).to(dev)
+    if kind == "gate":
+        return [(up((32, 8), 3.0),) for _ in range(n)]
+    return [(up((32, 32), 1.0), up((32, 8), 0.6)) for _ in range(n)]
+
+
+def gate_window(kind: str, inputs: tuple, **emit_kw) -> dict:
+    """One window's gate on the card: the score and select kernels, or
+    the fused head gate, with a threshold between the confidences."""
+    if kind == "gate":
+        return confidence_gate(inputs[0], 0.6, 30, **emit_kw)
+    return fused_head_gate(inputs[0], inputs[1], None, 0.6, 30, **emit_kw)
+
+
+@pytest.mark.parametrize("kind", ["gate", "fused_head"])
+def test_pinned_fetches_of_windows_in_flight_match_synchronous_ones(dev,
+                                                                    kind):
+    """16 back-to-back windows, 4 in flight: each window's pinned
+    non-blocking triple, read through its event, equals a synchronous
+    fetch of the same outputs, also once later windows have landed (one
+    buffer per window, none reused while its window is in flight)."""
+    from repro_torch.kernels.gate_fetch import start_fetch
+    inputs = window_inputs(kind, dev, np.random.default_rng(41), 16)
+    outs, pending, got, late = [], [], [], 0
+    for x in inputs:
+        queue_work(dev)
+        outs.append(gate_window(kind, x))
+        p = start_fetch(outs[-1])
+        late += not p.ready()
+        pending.append(p)
+        if len(pending) == 4:
+            got.append(pending.pop(0).wait())
+    got += [p.wait() for p in pending]
+    assert late > 0, "no copy was still in flight when the host looked"
+    for out, triple in zip(outs, got):
+        for k, a in zip(("conf", "pred", "idx"), triple):
+            np.testing.assert_array_equal(a, out[k].cpu().numpy())
+        assert (triple[2] >= 0).any()
+
+
+@pytest.mark.parametrize("kind", ["gate", "fused_head"])
+def test_emit_fires_once_per_call_after_its_copy(dev, kind):
+    """The gate's ``emit`` on the card: one call of ``emit`` per gate call
+    with that call's tag and triple, read after its copy landed (each
+    copy queued behind milliseconds of work: a read before its event
+    would find another window's bytes or none); the launch counts are
+    those of the gate without emit; ``close()`` joins the watcher."""
+    import threading
+
+    from repro_torch.kernels.gate_fetch import Emitter, start_fetch
+    fired: dict = {}
+
+    def emit(tag, conf, pred, idx):
+        fired.setdefault(tag, []).append((conf.copy(), pred.copy(),
+                                          idx.copy()))
+
+    em = Emitter(emit)
+    inputs = window_inputs(kind, dev, np.random.default_rng(43), 9)
+    outs = {}
+    before = launch_counts()
+    for tag in range(8):
+        queue_work(dev)
+        outs[tag] = gate_window(kind, inputs[tag], emit=em, emit_tag=tag)
+    assert em.alive
+    em.wait()
+    counts = {k: v - before[k] for k, v in launch_counts().items()}
+    assert counts["gate_select"] == 8
+    assert counts["fused_head_gate" if kind == "fused_head"
+                  else "gate_score"] == 8
+    # a triple submitted by hand goes the same way
+    queue_work(dev)
+    outs[99] = gate_window(kind, inputs[8])
+    em.submit(99, start_fetch(outs[99]))
+    em.close()
+    assert sorted(fired) == list(range(8)) + [99]
+    for tag, out in outs.items():
+        assert len(fired[tag]) == 1
+        for k, a in zip(("conf", "pred", "idx"), fired[tag][0]):
+            np.testing.assert_array_equal(a, out[k].cpu().numpy())
+        if tag != 99:                   # the gate returns the copy it emitted
+            for a, b in zip(out["fetch"].wait(), fired[tag][0]):
+                np.testing.assert_array_equal(a, b)
+    assert not em.alive
+    assert not any(t.name == "gate-emitter" and t.is_alive()
+                   for t in threading.enumerate())
+    with pytest.raises(TypeError, match="Emitter"):
+        gate_window(kind, inputs[0], emit=lambda *a: None)
+
+
+def test_engine_early_emit_on_the_card_serves_as_without(dev):
+    """The continuous batcher on the card with early emit armed (``auto``
+    through ``from_config``) and with it off: the same response for every
+    uid and the same billing; one emit per dispatched window; every
+    stored triple swept; the watcher joined at ``close()``."""
+    from repro_torch.serving import CascadeEngine, Request, ServeConfig
+    local_apply, remote_apply = fleet_tiers(dev)
+    cfg = ServeConfig(batch_size=8, remote_fraction_budget=0.5,
+                      t_remote=0.0, pipeline_depth=4,
+                      completion_mode="streaming",
+                      batching="continuous").with_overrides(
+        ["transport.timeout_s=300"])
+
+    def run(early_emit):
+        if early_emit == "config":
+            eng, sched = cfg.build(local_apply, remote_apply, cache=None,
+                                   fallback=lambda r: -1, device=dev)
+        else:
+            eng = CascadeEngine(local_apply, batch_size=cfg.batch_size,
+                                remote_fraction_budget=0.5, t_remote=0.0,
+                                transport=cfg.build_router(remote_apply),
+                                early_emit=early_emit, device=dev)
+            sched = cfg.build_scheduler(eng, fallback=lambda r: -1)
+        for i in range(FLEET_ROWS):
+            sched.submit(Request(uid=i, local_input=np.int64(i),
+                                 remote_input={"idx": np.int64(i)}))
+        rows = sorted((r.uid, r.prediction, r.source, r.disposition,
+                       r.cost) for r in sched.flush())
+        windows = eng._seq
+        eng.close()
+        torch.cuda.synchronize()
+        assert eng._gate_results == {}
+        assert eng._emitter is None or not eng._emitter.alive
+        return (rows, {f: getattr(eng.stats, f) for f in BILLING},
+                eng.early_emit, eng._gate_emits, windows)
+
+    on = run("config")
+    off = run(False)
+    forced = run(True)
+    assert on[2] and forced[2] and not off[2]
+    assert on[0] == off[0] == forced[0]
+    assert on[1] == off[1] == forced[1]
+    assert on[3] == on[4] > 0 and forced[3] == forced[4]
+    assert off[3] == 0
+    assert {r[2] for r in on[0]} >= {"local", "remote"}

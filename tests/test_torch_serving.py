@@ -254,8 +254,7 @@ def test_unported_serve_config_options_raise(override, match):
         ServeConfig(**{**override, "data_parallel": True})
 
 
-@pytest.mark.parametrize("kw,match", [({"early_emit": True}, "early_emit"),
-                                      ({"mesh": object()}, "mesh")])
+@pytest.mark.parametrize("kw,match", [({"mesh": object()}, "mesh")])
 def test_unported_engine_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         CascadeEngine(lambda x: x, batch_size=4, remote_fraction_budget=0.5,
