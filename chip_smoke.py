@@ -92,11 +92,25 @@ toolkit. In order, it
    tokens/s, MFU and peak memory (``train``); and the same for
    rwkv6-1.6b and hubert-xlarge (8 x 128 frame embeddings) at full
    width, 2 + 4 steps (``train_rwkv6``, ``train_hubert``);
+   After step 6 it serves the same 256 (and 64 fused-head) requests with
+   ``data_parallel=True``: the local forward on a (1, 1) serving mesh of
+   an NCCL group of one, as DTensors; every response, the bill and the
+   kernel launches equal the plain serve's (``serve_data_parallel``);
+   after step 9 it trains yi-6b with ``--mesh 1,1`` (DTensor parameters,
+   moments and batches) for 2 + 4 steps against the same steps without a
+   mesh, losses within rtol 1e-5 (``train_mesh``);
 10. runs each of the six ``repro_torch.examples`` through its ``main`` on
    the card with its own assertions (the training example at its ~100M
    scale for 50 steps, its loss falling; the long-context example's RWKV6
    scan and maxconf launches);
-11. prints one ``{"kernels": [...]}`` line and, last, one
+11. counts the roofline of the card's own paths with
+   ``repro_torch.analysis.roofline`` on one chip (fake tensors on the
+   CPU; the yi-6b serve window's prefill, its decode step and train
+   step, rwkv6's and h2o-danube's decode steps), each beside the median
+   this run measured (``roofline``), and runs the 256-rank fake-mesh
+   dry-run of yi-6b and rwkv6-1.6b at decode_32k in subprocesses
+   (``dryrun``);
+12. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure exits non-zero without the last line. Full results are also
@@ -106,10 +120,12 @@ written to ``build/chip_smoke.json``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -192,6 +208,20 @@ GRAD_TOL = {"yi-6b": 1e-4, "h2o-danube-1.8b": 1e-4, RWKV_ARCH: 2e-3,
             ZAMBA2G: 1e-4, VLM_ARCH: 1e-4, AUDIO_ARCH: 1e-4}
 TRAIN_SEQ = 128       # launcher defaults: batch 8 x 128 tokens, remat
 RESULTS: dict = {"phases": {}}
+# the plain serve phase's responses (yi-6b), for serve_data_parallel
+PLAIN_SERVE: dict = {}
+# the card's own paths for the roofline phase, (arch, kind, batch, seq),
+# and the hand bounds PERF.md §2 worked out for them (ms)
+ROOFLINE_PATHS = {"yi-6b serve window prefill": ("yi-6b", "prefill", 8, 48),
+                  "yi-6b decode step": ("yi-6b", "decode", 8, 544),
+                  "yi-6b train step": ("yi-6b", "train", 8, 128),
+                  "rwkv6-1.6b decode step": (RWKV_ARCH, "decode", 8, 544),
+                  "h2o-danube-1.8b decode step": ("h2o-danube-1.8b",
+                                                  "decode", 8, 544)}
+HAND_BOUND_MS = {"yi-6b decode step": 3.7, "yi-6b train step": 38.0,
+                 "rwkv6-1.6b decode step": 0.93,
+                 "h2o-danube-1.8b decode step": 1.1}
+DRYRUN_COMBOS = (("yi-6b", "decode_32k"), ("rwkv6-1.6b", "decode_32k"))
 
 
 def log(obj) -> None:
@@ -1336,6 +1366,9 @@ def serve_phase(dev, argv=SERVE_ARGV):
     out = {"setup_s": setup_s, "main": main, "fused_head": fused,
            "remote": rc.name, "remote_layers": rc.num_layers,
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    if argv is SERVE_ARGV:      # yi-6b: serve_data_parallel compares
+        PLAIN_SERVE.update(main=response_rows(res.responses),
+                           fused=response_rows(res2.responses))
     log({"phase": "serve", **out})
     out["remote_window_profile"] = profile_remote_window(stack)
     return out, stack
@@ -2656,6 +2689,184 @@ def train_phase(dev, arch: str, stream_steps: int, fixed_steps: int,
     return out
 
 
+def serve_data_parallel_phase(dev, stack) -> dict:
+    """The serve phase's 256 requests (and the 64 of its fused-head
+    branch) through ``serve.run`` with ``data_parallel=True``: the local
+    forward on a (1, 1) serving mesh of an NCCL group of one
+    (``launch.mesh.make_serving_mesh``), its rows as DTensors, gathered
+    before the gate. Every response, the bill and the gate, head-gate and
+    flash launches must equal the plain serve phase's; req/s and the
+    remote window latency beside the plain phase's."""
+    from repro_torch.kernels.fused_head_gate.ops import FusedLocalHead
+    from repro_torch.launch import serve
+    from repro_torch.models import surrogate as S
+
+    args = serve.parse_args(SERVE_ARGV)
+    plain_cfg = stack.cfg
+    stack.cfg = dataclasses.replace(plain_cfg, data_parallel=True)
+
+    @torch.no_grad()
+    def trunk(tk):
+        return S.apply(stack.scfg, stack.sparams, tk, return_hidden=True)[1]
+
+    head = FusedLocalHead(trunk, stack.sparams["out"]["w"],
+                          stack.sparams["out"]["b"])
+    try:
+        res, counts = launches_of(lambda: serve.run(args, stack))
+        res2, counts2 = launches_of(lambda: serve.run(
+            args, stack, local_apply=head, requests=FUSED_REQUESTS))
+    finally:
+        stack.cfg = plain_cfg
+    mesh = res.engine.mesh
+    assert mesh is not None and dict(mesh.shape) == {"data": 1, "model": 1}
+    main, fused = serve_checks(res, args.requests), serve_checks(
+        res2, FUSED_REQUESTS)
+    plain = RESULTS["phases"]["serve"]
+    assert response_rows(res.responses) == PLAIN_SERVE["main"], \
+        "the serving mesh changed a response"
+    assert response_rows(res2.responses) == PLAIN_SERVE["fused"], \
+        "the serving mesh changed a fused-head response"
+    assert main["billing"] == plain["main"]["billing"]
+    assert fused["billing"] == plain["fused_head"]["billing"]
+    assert counts == plain["main"]["launches"], counts
+    assert counts2 == plain["fused_head"]["launches"], counts2
+    out = {"mesh": dict(mesh.shape), "requests": args.requests,
+           "launches": counts, "fused_head_launches": counts2,
+           "billing": main["billing"],
+           "req_per_s": main["req_per_s"],
+           "plain_req_per_s": plain["main"]["req_per_s"],
+           "remote_window_ms": main["remote_prefill_ms_per_window"],
+           "plain_remote_window_ms": plain["main"][
+               "remote_prefill_ms_per_window"],
+           "fused_req_per_s": fused["req_per_s"],
+           "plain_fused_req_per_s": plain["fused_head"]["req_per_s"]}
+    log({"phase": "serve_data_parallel", **out})
+    return out
+
+
+def train_mesh_phase(dev, plain: dict, arch: str = "yi-6b",
+                     steps: int = 6) -> dict:
+    """``launch.train --mesh 1,1``: the ``train`` phase's model, batch
+    stream and schedule (its ``--steps``) on an NCCL group of one,
+    parameters, moments and batches as DTensors, for its first
+    ``steps`` steps (the stream's first batches): losses equal to the
+    train phase's first ones within the train path's tolerance (rtol
+    1e-5), no kernel launched, step time and peak memory beside the
+    train phase's (whose peak also holds its all-leaf gradient check)."""
+    from repro_torch.launch import train
+    free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    args = train.parse_args(["--arch", arch, "--steps", str(plain["steps"]),
+                             "--mesh", "1,1"])
+    cfg, params, opt_state, step_fn = train.setup(args)
+    batches = train.make_batches(cfg, args.batch, args.seq)
+    losses, step_s = [], []
+
+    def run():
+        nonlocal params, opt_state
+        for _ in range(steps):
+            batch = train.to_device(next(batches), dev)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize(dev)
+            step_s.append(time.perf_counter() - t0)
+
+    _, counts = launches_of(run)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    del params, opt_state, step_fn
+    free(dev)
+    assert sum(counts.values()) == 0, counts
+    assert all(math.isfinite(x) for x in losses), losses
+    want = plain["loss"][:steps]
+    np.testing.assert_allclose(losses, want, rtol=1e-5)
+    out = {"arch": arch, "mesh": {"data": 1, "model": 1}, "steps": steps,
+           "losses": losses, "plain_losses": want,
+           "max_rel_loss_diff": max(abs(a - b) / abs(b)
+                                    for a, b in zip(losses, want)),
+           "step_s_median": statistics.median(step_s[1:]),
+           "plain_step_s_median": plain["step_s_median"],
+           "peak_mem_gib": peak, "plain_peak_mem_gib": plain["peak_mem_gib"]}
+    log({"phase": "train_mesh", **out})
+    return out
+
+
+def roofline_phase(measured: dict) -> dict:
+    """``analysis.roofline`` on one chip (fake tensors on the CPU: the
+    plain paths' ops counted, nothing allocated) for the card's own
+    paths: the compute term, the memory term (the bytes the step must
+    move), the bound (the larger) and the plain path's unfused traffic,
+    each beside its median measured in this run and the hand bound
+    PERF.md §2 worked out (the card's constants; TF32 off, as this run
+    sets it)."""
+    from repro_torch.analysis.roofline import (bound_step_time,
+                                               roofline_from_lowered)
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import lower_step
+    rows = {}
+    for name, (arch, kind, b, t) in ROOFLINE_PATHS.items():
+        cfg, shape = get_config(arch), ShapeConfig(name, t, b, kind)
+        t0 = time.perf_counter()
+        rec = roofline_from_lowered(lower_step(cfg, shape, make_host_mesh()),
+                                    cfg, shape, make_host_mesh())
+        rows[name] = {"compute_ms": rec["compute_s"] * 1e3,
+                      "memory_ms": rec["memory_s"] * 1e3,
+                      "bound_ms": bound_step_time(rec) * 1e3,
+                      "bottleneck": rec["bottleneck"],
+                      "unfused_memory_ms": rec["unfused_memory_s"] * 1e3,
+                      "dot_flops": rec["flops_per_chip"],
+                      "f32_dot_share": rec["f32_dot_share"],
+                      "bytes": rec["bytes_per_chip"],
+                      "unfused_bytes": rec["unfused_bytes_per_chip"],
+                      "measured_ms": measured.get(name),
+                      "hand_bound_ms": HAND_BOUND_MS.get(name),
+                      "count_s": time.perf_counter() - t0}
+        log({"phase": "roofline", "path": name, **rows[name]})
+    return rows
+
+
+def start_dryrun() -> list:
+    """Start ``python -m repro_torch.launch.dryrun`` for yi-6b and
+    rwkv6-1.6b at decode_32k on the 256-rank fake mesh, each in its own
+    process, the two at once (CPU work: they run beside the roofline
+    phase's counting). Returns (arch, process, output file) triples."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "2"}
+    started = []
+    for arch, shape in DRYRUN_COMBOS:
+        out = ROOT / "build" / f"dryrun_{arch}.jsonl"
+        out.parent.mkdir(exist_ok=True)
+        out.unlink(missing_ok=True)
+        started.append((arch, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--json", str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT), out))
+    return started
+
+
+def dryrun_phase(started: list) -> dict:
+    """Wait for ``start_dryrun``'s processes: each exits 0, prints
+    ``OK`` and writes its record."""
+    try:
+        for arch, p, _ in started:
+            stdout, stderr = p.communicate(timeout=600)
+            assert p.returncode == 0 and "OK" in stdout, \
+                (arch, stdout[-2000:], stderr[-2000:])
+    finally:
+        for _, p, _ in started:
+            p.kill()
+    recs = [json.loads(out.read_text().splitlines()[-1])
+            for _, _, out in started]
+    for rec in recs:
+        assert rec["status"] == "ok", rec
+        log({"phase": "dryrun", **rec})
+    return {f"{r['arch']} {r['shape']}": r for r in recs}
+
+
 # ----------------------------------------------------------------------------
 
 SOURCES = {
@@ -2772,6 +2983,8 @@ def main() -> int:
     lap("serve_chaos")
     phases["serve_early_emit"] = serve_early_emit_phase(dev, stack)
     lap("serve_early_emit")
+    phases["serve_data_parallel"] = serve_data_parallel_phase(dev, stack)
+    lap("serve_data_parallel")
     phases["supervisors"] = sup = supervisor_phase(dev)
     lap("supervisors")
     # free yi-6b, so that rwkv6's phases measure their own peak memory
@@ -2805,8 +3018,25 @@ def main() -> int:
     phases["train_hubert"] = train_phase(dev, AUDIO_ARCH, 2, 4,
                                          "train_hubert")
     lap("train_hubert")
+    phases["train_mesh"] = train_mesh_phase(dev, phases["train"])
+    lap("train_mesh")
     phases["examples"] = examples_phase(dev)
     lap("examples")
+    measured = {
+        "yi-6b serve window prefill":
+            serve["main"]["remote_prefill_ms_per_window"],
+        "yi-6b decode step": gen["decode_step_ms_median"],
+        "yi-6b train step": phases["train"]["step_s_median"] * 1e3,
+        "rwkv6-1.6b decode step": rwkv_gen["decode_step_ms_median"],
+        "h2o-danube-1.8b decode step":
+            phases["generate_h2o-danube-1.8b"]["decode_step_ms_median"]}
+    dryruns = start_dryrun()
+    phases["roofline"] = roofline_phase(measured)
+    lap("roofline")
+    phases["dryrun"] = dryrun_phase(dryruns)
+    lap("dryrun")
+    from repro_torch.launch.mesh import destroy
+    destroy()
     log({"phase": "seconds", **seconds})
     line = kernels_line(kern, serve, gen, rwkv_gen, sup)
     RESULTS["kernels"] = line["kernels"]

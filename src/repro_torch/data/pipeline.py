@@ -3,9 +3,9 @@
 same batches).
 
 The batches stay numpy arrays on the host; a caller moves one to its
-device with ``torch.as_tensor(..., device=)``. Placing a batch across a
-mesh of devices (JAX's ``shard_batch``) comes with the port's mesh slice
-(ROADMAP.md, queue A, item 8).
+device with ``torch.as_tensor(..., device=)``, and ``shard_batch`` lays
+it out across a mesh: its batch dim over the batch axes, as DTensors
+(each rank keeps its own rows; ``launch.train --mesh``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 class BatchIterator:
@@ -34,3 +35,18 @@ class BatchIterator:
             for i in range(0, self.n - self.bs + 1, self.bs):
                 idx = order[i:i + self.bs]
                 yield {k: v[idx] for k, v in self.data.items()}
+
+
+def shard_batch(batch: dict, mesh, batch_axes: tuple[str, ...],
+                device: str | torch.device | None = None) -> dict:
+    """Place a host batch on ``mesh`` (a ``launch.mesh.Mesh`` with its
+    ``DeviceMesh``), batch dim sharded over ``batch_axes``: every rank
+    holds the same host batch and keeps its own rows."""
+    from repro_torch.launch.sharding import NamedSharding, distribute
+    out = {}
+    for k, v in batch.items():
+        v = torch.as_tensor(v, device=device)
+        spec = (batch_axes if len(batch_axes) > 1 else batch_axes[0],
+                *([None] * (v.dim() - 1)))
+        out[k] = distribute(v, NamedSharding(mesh, spec))
+    return out

@@ -34,7 +34,11 @@ logical cascade (``runtime.cluster.ClusterHarness``): one shared router,
 a single-fill shared response cache and a cluster budget reconciler;
 requests round-robin across the replicas, and ``--trace``/
 ``--trace-chrome`` are refused (the metrics flags serve the merged,
-replica-labelled fleet registry). ``data_parallel`` is not ported yet.
+replica-labelled fleet registry). ``--set data_parallel=true`` runs the
+local forward on the serving mesh (``launch.mesh.make_serving_mesh``:
+every rank of the process group on ``data``, a group of one on a single
+card), its rows as DTensors gathered before the gate; it serves what
+the plain engine serves.
 
 ``main`` is three calls, which callers that need the built stack (the
 chip smoke test) make themselves: ``parse_args`` -> ``build_stack``

@@ -7,8 +7,13 @@ step and the same log line, plus ``--device {cuda,cpu}`` (default
 ``cuda``; a missing GPU is an error, never a quiet fallback to the CPU).
 Parameters are drawn on the device from ``torch.Generator(device)
 .manual_seed(0)``; the step updates them and the optimizer state in place
-(JAX's launcher donates their buffers). ``--mesh`` (a data x model mesh
-over several devices) comes with the port's mesh slice.
+(JAX's launcher donates their buffers). ``--mesh data,model`` trains on
+a mesh of devices, one process a device (``torchrun``; a group of one
+without it): the parameters and moments are DTensors laid out by
+``launch.sharding``'s rules (FSDP past 8 devices, as JAX's launcher
+decides), each batch is sharded over ``data`` (``data.pipeline
+.shard_batch``), and the step and AdamW run on them. The sizes must
+multiply to the number of processes, or it raises ``ValueError``.
 
 ``main`` is ``parse_args`` -> ``setup`` (config, parameters, optimizer
 state, step function) -> the loop over ``make_batches``; callers that
@@ -18,6 +23,8 @@ themselves.
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \\
         --steps 20
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --device cpu --smoke --steps 5 --mesh 2,1
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \\
         --device cpu --smoke --steps 50 --batch 8 --seq 128
 """
@@ -25,20 +32,27 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import Mesh, batch_axes, device_mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.frontend import frontend_embeddings
+from repro_torch.models.shard_hints import gather, use_mesh
 from repro_torch.train.checkpoint import save_checkpoint
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+from repro_torch.tree import tree_map
 
 
 def make_batches(cfg: ModelConfig, batch: int, seq: int,
@@ -88,7 +102,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--mesh", default="",
-                    help="'data,model' sizes; not ported (one device)")
+                    help="'data,model' sizes, e.g. '2,1'; they multiply "
+                         "to the number of processes (default: one "
+                         "device, no mesh)")
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--log-every", type=int, default=10)
     return ap
@@ -98,12 +114,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     """Parse the flags; ``args.device`` holds the resolved
     ``torch.device``."""
     args = _parser().parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh: training over a mesh of devices comes with the "
-            "port's mesh slice (ROADMAP.md, queue A, item 8); the port "
-            "trains on one device")
     args.device = resolve_device(args.device)
+    if args.mesh:
+        shape = tuple(int(x) for x in args.mesh.split(","))
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", "1")))
+        if len(shape) != 2 or shape[0] * shape[1] != world:
+            raise ValueError(f"--mesh {args.mesh}: the data x model sizes "
+                             f"must multiply to the {world} processes")
+        args.mesh = Mesh({"data": shape[0], "model": shape[1]})
     return args
 
 
@@ -117,13 +136,36 @@ def opt_config(args) -> AdamWConfig:
 def setup(args) -> tuple[ModelConfig, dict, dict, Callable]:
     """(cfg, params, opt_state, train_step) for ``args``: parameters
     drawn on the device, zeroed fp32 moments, the remat'd step with
-    ``opt_config(args)``."""
+    ``opt_config(args)``. With ``--mesh`` it joins the process group
+    (NCCL on CUDA, gloo on the CPU), attaches the ``DeviceMesh`` to
+    ``args.mesh``, lays the parameters out as DTensors (each rank draws
+    the same parameters and keeps its shards), and the step shards each
+    batch over ``data`` and runs under the mesh."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if args.mesh:
+        backend = "nccl" if args.device.type == "cuda" else "gloo"
+        args.mesh = device_mesh(args.mesh, backend)
+        if args.device.type == "cuda":
+            args.device = torch.device("cuda", torch.cuda.current_device())
     params = T.init_params(cfg, torch.Generator(args.device).manual_seed(0))
-    return (cfg, params, init_opt_state(params),
-            make_train_step(cfg, opt_config(args), remat=True))
+    step = make_train_step(cfg, opt_config(args), remat=True)
+    if args.mesh:
+        params = sh.distribute_tree(params, sh.params_shardings(
+            cfg, args.mesh, fsdp=args.mesh.size > 8))
+        step = mesh_step(step, args.mesh, args.device)
+    return cfg, params, init_opt_state(params), step
+
+
+def mesh_step(step: Callable, mesh, device) -> Callable:
+    """``step`` on ``mesh``: the host batch sharded over the batch axes,
+    the step run under the mesh (``shard_hints.use_mesh``)."""
+    def sharded(params, opt_state, batch):
+        batch = shard_batch(batch, mesh, batch_axes(mesh), device=device)
+        with use_mesh(mesh):
+            return step(params, opt_state, batch)
+    return sharded
 
 
 def log_line(step: int, m: dict[str, float], s_per_step: float) -> str:
@@ -136,7 +178,11 @@ def log_line(step: int, m: dict[str, float], s_per_step: float) -> str:
 def main(argv=None) -> int:
     args = parse_args(argv)
     cfg, params, opt_state, step_fn = setup(args)
-    print(f"[train] {cfg.name}: one device ({args.device})")
+    if args.mesh:
+        print(f"[train] {cfg.name}: mesh {dict(args.mesh.shape)} on "
+              f"{args.mesh.size} device(s) ({args.device.type})")
+    else:
+        print(f"[train] {cfg.name}: one device ({args.device})")
     batches = make_batches(cfg, args.batch, args.seq)
     t0 = time.perf_counter()
     for i in range(args.steps):
@@ -148,8 +194,11 @@ def main(argv=None) -> int:
             dt = time.perf_counter() - t0
             print(log_line(i + 1, m, dt / (i + 1)))
     if args.checkpoint:
-        save_checkpoint(args.checkpoint, params, step=args.steps)
-        print(f"[train] saved {args.checkpoint}")
+        if args.mesh:       # the whole parameters, written by rank 0
+            params = tree_map(gather, params)
+        if not args.mesh or dist.get_rank() == 0:
+            save_checkpoint(args.checkpoint, params, step=args.steps)
+            print(f"[train] saved {args.checkpoint}")
     return 0
 
 

@@ -28,6 +28,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.models.shard_hints import (fit, is_sharded, keep, like,
+                                             local_range, map_local, pin,
+                                             split_heads, write_slot)
 
 Params = dict
 
@@ -139,13 +142,31 @@ def attention_params(gen, cfg: ModelConfig, dtype, stack: tuple = ()) -> Params:
     }
 
 
+_SCORES_FP32 = False    # ablation: the fp32 attention-score path
+
+
+def set_scores_fp32(value: bool) -> None:
+    """Toggle JAX's fp32 attention-score ablation (``repro.models.layers
+    .set_scores_fp32``; ``analysis.perf --fp32-scores``): the softmax
+    weights enter the PV product in fp32 instead of rounded to the
+    values' dtype. The serving kernels are not affected."""
+    global _SCORES_FP32
+    _SCORES_FP32 = value
+
+
+def scores_fp32() -> bool:
+    return _SCORES_FP32
+
+
 def _sdpa(q, k, v, mask, scale):
     """q:[B,Tq,K,G,hd] k,v:[B,S,K,hd] mask:[Tq,S] bool -> [B,Tq,K,G,hd]."""
     logits = torch.einsum("btkgh,bskh->bkgts", q.float(), k.float()) * scale
     logits = torch.where(mask[None, None, None], logits,
                          torch.tensor(-1e30, device=logits.device))
     w = torch.softmax(logits, -1)
-    out = torch.einsum("bkgts,bskh->btkgh", w.to(v.dtype).float(), v.float())
+    if not _SCORES_FP32:
+        w = w.to(v.dtype).float()
+    out = torch.einsum("bkgts,bskh->btkgh", w, v.float())
     return out.to(q.dtype)
 
 
@@ -184,12 +205,29 @@ def gqa_attention(q, k, v, *, causal: bool, q_offset: int = 0,
 def _qkv(cfg: ModelConfig, p: Params, x, positions):
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = dense(p["wq"], x).reshape(b, t, cfg.num_heads, hd)
-    k = dense(p["wk"], x).reshape(b, t, cfg.num_kv_heads, hd)
-    v = dense(p["wv"], x).reshape(b, t, cfg.num_kv_heads, hd)
+    # the query heads split into kv-head groups (gqa_attention): on a
+    # mesh they follow the kv heads' layout
+    q = fit(split_heads(dense(p["wq"], x), cfg.num_heads, hd), 2,
+            cfg.num_kv_heads)
+    k = split_heads(dense(p["wk"], x), cfg.num_kv_heads, hd)
+    v = split_heads(dense(p["wv"], x), cfg.num_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def per_head_shard(fn, q, *kv):
+    """``fn(q, *kv)`` -> [B, T, H, ...]; on a mesh, run on this rank's
+    rows and heads (attention is independent across both; DTensor's
+    einsum rules would gather around the grouped-head reshapes). ``q``
+    [B, T, H, hd] and each of ``kv`` [B, S, K, hd] keep their row and
+    head shards (``fit`` made q's heads follow the kv heads'), and
+    every other dim is gathered."""
+    if not is_sharded(q):
+        return fn(q, *kv)
+    pl = keep(q, {0: 0, 2: 2})
+    return map_local(lambda *a: (fn(*a),), q.device_mesh,
+                     [(x, pl) for x in (q, *kv)], (pl,))[0]
 
 
 def attn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -198,15 +236,21 @@ def attn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     plain ``gqa_attention``, as ``repro.models.layers.attn_forward``."""
     b, t, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    out = gqa_attention(q, k, v, causal=causal, window=cfg.sliding_window)
-    return dense(p["wo"], out.reshape(b, t, -1))
+    out = per_head_shard(
+        lambda q, k, v: gqa_attention(q, k, v, causal=causal,
+                                      window=cfg.sliding_window), q, k, v)
+    # pin: on a mesh, the gradient comes back through the head merge laid
+    # out as the heads are (fit may have gathered them)
+    return dense(p["wo"], pin(out.reshape(b, t, -1)))
 
 
 def attn_prefill(cfg: ModelConfig, p: Params, x, positions):
     """Returns (out, (k, v)) — caller stores k/v into the layer cache."""
     b, t, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    out = attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = per_head_shard(
+        lambda q, k, v: attention(q, k, v, causal=True,
+                                  window=cfg.sliding_window), q, k, v)
     out = dense(p["wo"], out.reshape(b, t, -1))
     if cfg.sliding_window and t > cfg.sliding_window:
         # keep only the window, rolled so position p lands at ring slot
@@ -252,10 +296,68 @@ def attn_decode(cfg: ModelConfig, p: Params, x, k_cache, v_cache, pos: int,
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x, positions)
     slot = pos % k_cache.shape[1] if cfg.sliding_window else pos
-    k_cache[:, slot] = k[:, 0]
-    v_cache[:, slot] = v[:, 0]
-    out = decode_attn(q[:, 0], k_cache, v_cache, kv_len)
+    write_slot(k_cache, slot, k[:, 0])
+    write_slot(v_cache, slot, v[:, 0])
+    if is_sharded(k_cache):
+        out = _decode_attn_sharded(q[:, 0], k_cache, v_cache, kv_len)
+    else:
+        out = decode_attn(q[:, 0], k_cache, v_cache, kv_len)
     return dense(p["wo"], out.reshape(b, 1, -1)), k_cache, v_cache
+
+
+def _decode_attn_sharded(q, k_cache, v_cache, kv_len):
+    """``decode_attn`` on a mesh: q [B, H, hd], caches [B, S, K, hd] as
+    DTensors. Each rank attends over its own shard of the cache: its
+    rows, and its kv heads (with their query heads) or its slots. Over
+    sharded slots each rank's softmax is partial, and the ranks combine
+    their maxima and sums (flash-decoding's split-KV), as the production
+    mesh shards the cache of a model whose kv heads do not divide the
+    ``model`` axis (``launch.sharding.cache_spec``). The kernel has no
+    split-KV form, so sharded slots decode on the CPU only: the
+    dry-run's fake tensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = k_cache.device_mesh
+    q = like(k_cache, q)
+    # q [B, H, hd] follows the cache's rows and kv heads (head h is in
+    # kv group h // G, so a split of K is a split of H)
+    qpl = [Shard({0: 0, 2: 1}[p.dim]) if isinstance(p, Shard)
+           and p.dim in (0, 2) else Replicate() for p in k_cache.placements]
+    if list(q.placements) != qpl:
+        q = q.redistribute(mesh, qpl)
+    b0, nb = local_range(k_cache, 0)
+    lens = kv_len[b0:b0 + nb]
+    ql, kl, vl = q.to_local(), k_cache.to_local(), v_cache.to_local()
+    seq = [i for i, p in enumerate(k_cache.placements)
+           if isinstance(p, Shard) and p.dim == 1]
+    if not seq:
+        return DTensor.from_local(decode_attn(ql, kl, vl, lens), mesh, qpl,
+                                  run_check=False)
+    if ql.device.type != "cpu":
+        raise RuntimeError("decode attention over slot-sharded caches has "
+                           "no kernel (no split-KV form); it runs on the "
+                           "dry-run's CPU tensors only")
+    b, h, hd = ql.shape
+    s0, ns = local_range(k_cache, 1)
+    kh = kl.shape[2]
+    qr = ql.reshape(b, kh, h // kh, hd).float()
+    lg = torch.einsum("bkgh,bskh->bkgs", qr, kl.float()) / math.sqrt(hd)
+    valid = (s0 + torch.arange(ns, device=ql.device))[None, :] \
+        < lens.to(ql.device)[:, None]
+    lg = lg.masked_fill(~valid[:, None, None, :], -1e30)
+    m = lg.amax(-1, keepdim=True)
+    e = torch.exp(lg - m)
+
+    def reduce(t, op):      # over the slot-sharding mesh dims
+        pl = [Partial(op) if i in seq else p for i, p in enumerate(qpl)]
+        return DTensor.from_local(t, mesh, pl, run_check=False) \
+            .redistribute(mesh, qpl).to_local()
+
+    scale = torch.exp(m - reduce(m, "max"))
+    den = reduce(e.sum(-1, keepdim=True) * scale, "sum")
+    num = reduce(torch.einsum("bkgs,bskh->bkgh", e * scale, vl.float()),
+                 "sum")
+    out = (num / den).reshape(b, h, hd).to(ql.dtype)
+    return DTensor.from_local(out, mesh, qpl, run_check=False)
 
 
 # --------------------------------------------------------------------------

@@ -24,8 +24,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Shard
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.shard_hints import (constrain, is_sharded, keep,
+                                            map_local, pin, stepwise)
 from repro_torch.models.layers import (Params, dense, dense_params, normal,
                                        rms_norm)
 
@@ -89,6 +92,18 @@ def _conv(w, b, xbc, conv_state):
     return F.silu(out + b), x_pad[:, -(CONV_W - 1):].float()
 
 
+@stepwise(4)
+def _ssd(decay, dtx, bb, cc, s):
+    """The SSD recurrence token by token: decay [B, T, H], dtx [B, T, H,
+    P], bb/cc [B, T, N] fp32, s [B, H, P, N] -> (y [B, T, H, P], s_T)."""
+    ys = []
+    for i in range(dtx.shape[1]):
+        upd = dtx[:, i, :, :, None] * bb[:, i, None, None, :]  # [B,H,P,N]
+        s = decay[:, i, :, None, None] * s + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", s, cc[:, i]))
+    return torch.stack(ys, 1), s
+
+
 def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                    state: Params | None = None):
     """Full-sequence SSD mixer. x: [B, T, D] -> (y [B, T, D], final state
@@ -97,33 +112,46 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     it is read, never written."""
     b, t, _ = x.shape
     d_inner, h, n = dims(cfg)
-    zx = dense(p["w_zx"], x)
+    # pin: on a mesh, the gradients through the conv's slices along the
+    # sequence come back laid out as these projections are
+    zx = pin(dense(p["w_zx"], x))
     z, xi = zx[..., :d_inner], zx[..., d_inner:]
-    bc = dense(p["w_bc"], x)
-    dt = dense(p["w_dt"], x)
+    bc = pin(dense(p["w_bc"], x))
+    dt = pin(dense(p["w_dt"], x))
     if state is None:
-        state = {"ssm": x.new_zeros((b, h, HEAD_P, n), dtype=torch.float32),
-                 "conv_x": x.new_zeros((b, CONV_W - 1, d_inner),
-                                       dtype=torch.float32),
-                 "conv_bc": x.new_zeros((b, CONV_W - 1, 2 * n),
-                                        dtype=torch.float32)}
+        f32 = dict(dtype=torch.float32, device=x.device)
+        state = {"ssm": torch.zeros((b, h, HEAD_P, n), **f32),
+                 "conv_x": torch.zeros((b, CONV_W - 1, d_inner), **f32),
+                 "conv_bc": torch.zeros((b, CONV_W - 1, 2 * n), **f32)}
     xi, conv_x = _conv(p["conv_x_w"], p["conv_x_b"], xi, state["conv_x"])
     bc, conv_bc = _conv(p["conv_bc_w"], p["conv_bc_b"], bc, state["conv_bc"])
     bb, cc = bc[..., :n].float(), bc[..., n:].float()
 
     dt = F.softplus(dt.float() + p["dt_bias"])                # [B, T, H]
     decay = torch.exp(dt * -torch.exp(p["a_log"]))            # [B, T, H]
-    # d_inner is flattened P-major (index = p * h + head)
+    # d_inner is flattened P-major (index = p * h + head): on the
+    # production mesh the column-parallel shards of w_zx line up with the
+    # P-sharding of the recurrence (JAX's hints, kept where JAX has them)
+    xi = constrain(xi, "data", None, "model")
     x_h = xi.float().reshape(b, t, HEAD_P, h).transpose(2, 3)  # [B,T,H,P]
+    x_h = constrain(x_h, "data", None, None, "model")
     dtx = dt[..., None] * x_h                                 # [B,T,H,P]
-    s = state["ssm"].float()
-    ys = []
-    for i in range(t):
-        upd = dtx[:, i, :, :, None] * bb[:, i, None, None, :]  # [B,H,P,N]
-        s = decay[:, i, :, None, None] * s + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", s, cc[:, i]))
-    y = torch.stack(ys, 1) + p["d_skip"][:, None] * x_h
+    s = constrain(state["ssm"].float(), "data", None, "model", None)
+    if is_sharded(dtx):
+        # on a mesh each rank runs the recurrence on its rows and its
+        # shard of P (independent across both; N is reduced per rank)
+        pl, rpl = keep(dtx, {0: 0, 3: 3}), keep(dtx, {0: 0})
+        spl = [Shard({0: 0, 3: 2}[p.dim]) if isinstance(p, Shard) else p
+               for p in pl]                       # s [B, H, P, N] alike
+        ys, s = map_local(_ssd, dtx.device_mesh,
+                          [(decay, rpl), (dtx, pl), (bb, rpl), (cc, rpl),
+                           (s, spl)], (pl, spl))
+    else:
+        ys, s = _ssd(decay, dtx, bb, cc, s)
+    y = ys + p["d_skip"][:, None] * x_h
+    y = constrain(y, "data", None, None, "model")
     y = y.transpose(2, 3).reshape(b, t, d_inner).to(x.dtype)
+    y = constrain(y, "data", None, "model")
     y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
     return dense(p["w_out"], y), {"ssm": s, "conv_x": conv_x,
                                   "conv_bc": conv_bc}

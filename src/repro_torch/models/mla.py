@@ -29,7 +29,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Params, apply_rope, dense,
-                                       dense_params, rms_norm)
+                                       dense_params, rms_norm, scores_fp32)
+from repro_torch.models.shard_hints import (is_sharded, keep, map_local,
+                                            rows, split_heads)
 
 
 def mla_params(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -53,13 +55,15 @@ def mla_params(gen: torch.Generator, cfg: ModelConfig, dtype,
 def _split_q(cfg: ModelConfig, q: torch.Tensor):
     b, t, _ = q.shape
     dn = cfg.qk_nope_head_dim
-    q = q.reshape(b, t, cfg.num_heads, dn + cfg.qk_rope_head_dim)
+    q = split_heads(q, cfg.num_heads, dn + cfg.qk_rope_head_dim)
     return q[..., :dn], q[..., dn:]
 
 
 def _latents(cfg: ModelConfig, p: Params, x, positions):
     """(c_kv [B, T, r], k_rope [B, T, 1, dr]): exactly what is cached."""
-    c_kv = rms_norm(dense(p["w_dkv"], x), p["kv_norm"], cfg.norm_eps)
+    # on a mesh: the latent whole on every rank of a row shard (as the
+    # residual stream), so the head projections split it cleanly
+    c_kv = rms_norm(rows(dense(p["w_dkv"], x)), p["kv_norm"], cfg.norm_eps)
     k_r = dense(p["w_kr"], x)[:, :, None, :]    # one rope key for all heads
     return c_kv, apply_rope(k_r, positions, cfg.rope_theta)
 
@@ -81,10 +85,31 @@ def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions, *,
     q_n, q_r = _split_q(cfg, dense(p["wq"], x))
     q_r = apply_rope(q_r, positions, cfg.rope_theta)
     c_kv, k_r = _latents(cfg, p, x, positions)
-    k_n = dense(p["w_uk"], c_kv).reshape(b, t, h, dn).float()
-    v = dense(p["w_uv"], c_kv).reshape(b, t, h, dv)
-    k_rf, scale = k_r.float(), _scale(cfg)
-    kv_pos = torch.arange(t, device=x.device)
+    k_n = split_heads(dense(p["w_uk"], c_kv), h, dn)
+    v = split_heads(dense(p["w_uv"], c_kv), h, dv)
+
+    def attend(q_n, q_r, k_n, k_r, v):
+        return (_attend(cfg, q_n, q_r, k_n, k_r, v, causal, q_chunk),)
+
+    if is_sharded(q_n):
+        # on a mesh: each rank attends over its own rows and heads; the
+        # rope key (one for all heads) follows the rows only
+        pl = keep(q_n, {0: 0, 2: 2})
+        out = map_local(attend, q_n.device_mesh,
+                        [(q_n, pl), (q_r, pl), (k_n, pl),
+                         (k_r, keep(q_n, {0: 0})), (v, pl)], (pl,))[0]
+    else:
+        out = attend(q_n, q_r, k_n, k_r, v)[0]
+    return dense(p["wo"], out.reshape(b, t, h * dv)), (c_kv, k_r[:, :, 0, :])
+
+
+def _attend(cfg: ModelConfig, q_n, q_r, k_n, k_r, v, causal: bool,
+            q_chunk: int):
+    """The naive form's attention: q_n, k_n [B, T, H, dn], q_r [B, T, H,
+    dr], k_r [B, T, 1, dr], v [B, T, H, dv] -> [B, T, H, dv]."""
+    t = q_n.shape[1]
+    k_n, k_rf, scale = k_n.float(), k_r.float(), _scale(cfg)
+    kv_pos = torch.arange(t, device=q_n.device)
     outs = []
     for c0 in range(0, t, q_chunk):
         sl = slice(c0, c0 + q_chunk)
@@ -92,15 +117,16 @@ def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions, *,
         lg = (torch.einsum("btnd,bsnd->bnts", qn, k_n)
               + torch.einsum("btnd,bsod->bnts", qr, k_rf)) * scale
         if causal:
-            q_pos = c0 + torch.arange(qn.shape[1], device=x.device)
+            q_pos = c0 + torch.arange(qn.shape[1], device=q_n.device)
             m = kv_pos[None, :] <= q_pos[:, None]
             lg = torch.where(m[None, None], lg,
-                             torch.tensor(-1e30, device=x.device))
+                             torch.tensor(-1e30, device=q_n.device))
         w = torch.softmax(lg, -1)
-        outs.append(torch.einsum("bnts,bsnd->btnd", w.to(v.dtype).float(),
-                                 v.float()).to(x.dtype))
-    out = torch.cat(outs, 1).reshape(b, t, h * dv)
-    return dense(p["wo"], out), (c_kv, k_r[:, :, 0, :])
+        if not scores_fp32():       # the fp32-score ablation keeps w fp32
+            w = w.to(v.dtype).float()
+        outs.append(torch.einsum("bnts,bsnd->btnd", w,
+                                 v.float()).to(q_n.dtype))
+    return torch.cat(outs, 1)
 
 
 def make_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,

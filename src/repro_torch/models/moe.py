@@ -24,8 +24,18 @@ shared experts (one swiglu of width ``num_shared_experts * moe_d_ff``)
 are added last. The expert products are ``torch.matmul``: JAX computes
 them outside any Pallas kernel.
 
-One dispatch group only: JAX sizes its groups from the ambient mesh's
-``data`` axis (``shard_hints``), which the port does not have yet.
+Dispatch groups, as JAX's: the tokens split into G groups, G the
+ambient mesh's ``data`` size when it divides them (``shard_hints``; 1
+outside a mesh), and each group takes its own capacity ``capacity(cfg,
+n / G)`` and its own queue positions. Dropless serving is the same for
+any G; under capacity (training) G changes which pairs drop, as in JAX.
+On a mesh whose tokens are DTensors (``launch.specs``, ``train --mesh``)
+each ``data`` rank's rows are its group, and the experts are sharded
+over ``model`` (expert parallelism): each rank routes its rows, runs its
+own experts on the pairs routed to them, and the ranks of a group sum
+their outputs. Fake tensors (the dry-run) hold no routing, so there each
+expert takes an even share of the pairs: for dropless serving that
+total is exact.
 """
 
 from __future__ import annotations
@@ -38,6 +48,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Params, dense_params, normal, swiglu,
                                        swiglu_params)
+from repro_torch.models.shard_hints import abstract, get_mesh, is_sharded, \
+    keep, local_range, map_local
 
 
 def moe_params(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -90,11 +102,24 @@ def keep_mask(top_e: torch.Tensor, e: int, cap: int) -> torch.Tensor:
     return (pos < cap).reshape(top_e.shape)
 
 
-def _experts(p: Params, xf: torch.Tensor, top_e: torch.Tensor,
-             keep: torch.Tensor) -> torch.Tensor:
+def _dispatch_groups(n: int) -> int:
+    """Number of dispatch groups = ambient `data` axis size (1 if absent
+    or indivisible)."""
+    mesh = get_mesh()
+    if mesh is None or "data" not in mesh.axis_names:
+        return 1
+    g = mesh.shape["data"]
+    return g if n % g == 0 else 1
+
+
+def _experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
+             top_e: torch.Tensor, keep: torch.Tensor, capacity_factor,
+             dropless: bool) -> torch.Tensor:
     """Each kept (token, slot) pair's expert output, [m, k, D] (zero
     where dropped): the pairs sorted by expert, each expert's swiglu on
-    its own rows."""
+    its own rows. ``top_e`` indexes ``p``'s experts (a shard of the
+    config's). Fake tensors hold no routing: there each expert takes an
+    even share of the pairs, at most its capacity."""
     m, k = top_e.shape
     e = p["w_gate"].shape[0]
     # one view per expert by unbind (indexing a leaf per expert would give
@@ -103,7 +128,10 @@ def _experts(p: Params, xf: torch.Tensor, top_e: torch.Tensor,
     out = xf.new_zeros((m * k, xf.shape[-1]))
     flat = torch.where(keep, top_e, e).reshape(-1)      # dropped -> e
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=e + 1)[:e].tolist()
+    if abstract(flat):
+        counts = [_share(cfg, m, capacity_factor, dropless)] * e
+    else:
+        counts = torch.bincount(flat, minlength=e + 1)[:e].tolist()
     rows = order // k
     start = 0
     for ex, n in enumerate(counts):
@@ -115,23 +143,100 @@ def _experts(p: Params, xf: torch.Tensor, top_e: torch.Tensor,
     return out.reshape(m, k, -1)
 
 
+def _keep(cfg: ModelConfig, top_e: torch.Tensor, groups: int,
+          capacity_factor: float | None, dropless: bool) -> torch.Tensor:
+    """The kept pairs of ``groups`` dispatch groups of the rows of
+    ``top_e``, each with its own capacity and queue positions."""
+    if dropless:    # cap = m: a pair's place in its queue is below m
+        return torch.ones_like(top_e, dtype=torch.bool)
+    m = top_e.shape[0] // groups
+    cap = capacity(cfg, m, capacity_factor)
+    return torch.cat([keep_mask(te, cfg.num_experts, cap)
+                      for te in top_e.split(m)])
+
+
+def _share(cfg: ModelConfig, m: int, capacity_factor, dropless) -> int:
+    """An expert's even share of ``m`` rows' pairs, at most its
+    capacity."""
+    share = -(-m * cfg.num_experts_per_tok // cfg.num_experts)
+    return share if dropless else min(share,
+                                      capacity(cfg, m, capacity_factor))
+
+
+def _combine(ye: torch.Tensor, top_p: torch.Tensor,
+             keep: torch.Tensor) -> torch.Tensor:
+    """Outputs per token in slot order, weighted by the renormalised
+    probabilities cast to the activations' dtype."""
+    w = (top_p * keep).to(ye.dtype)
+    y = ye[:, 0] * w[:, :1]
+    for j in range(1, ye.shape[1]):                       # slot order
+        y = y + ye[:, j] * w[:, j:j + 1]
+    return y
+
+
 def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 capacity_factor: float | None = None,
                 dropless: bool = False):
     """x: [B, T, D] -> (y [B, T, D], aux_loss 0-d fp32)."""
     b, t, d = x.shape
-    xf = x.reshape(b * t, d)
-    top_e, top_p, aux = route(cfg, p, xf)
-    if dropless:    # cap = m: a pair's place in its queue is below m
-        keep = torch.ones_like(top_e, dtype=torch.bool)
+    if is_sharded(x):
+        y, aux = _moe_sharded(cfg, p, x, capacity_factor, dropless)
     else:
-        keep = keep_mask(top_e, cfg.num_experts,
-                         capacity(cfg, b * t, capacity_factor))
-    ye = _experts(p, xf, top_e, keep)                     # [m, k, D]
-    w = (top_p * keep).to(ye.dtype)
-    y = ye[:, 0] * w[:, :1]
-    for j in range(1, ye.shape[1]):                       # slot order
-        y = y + ye[:, j] * w[:, j:j + 1]
+        xf = x.reshape(b * t, d)
+        top_e, top_p, aux = route(cfg, p, xf)
+        keep = _keep(cfg, top_e, _dispatch_groups(b * t), capacity_factor,
+                     dropless)
+        y = _combine(_experts(cfg, p, xf, top_e, keep, capacity_factor,
+                              dropless), top_p, keep)
     if "shared" in p:
-        y = y + swiglu(p["shared"], xf)
+        y = y + swiglu(p["shared"], x.reshape(b * t, d))
     return y.reshape(b, t, d), aux
+
+
+def _moe_sharded(cfg: ModelConfig, p: Params, x, capacity_factor,
+                 dropless):
+    """``moe_forward``'s routed experts on a mesh: x [B, T, D] a DTensor.
+    Each rank routes its rows (its dispatch group; the router is
+    replicated), runs the experts of its shard of the expert dim on the
+    pairs routed to them and gives zeros for the others; the output is
+    a partial sum over the mesh dims that shard the experts. The
+    balance loss is JAX's, over all tokens: each group's mean
+    probabilities and routed fractions are averaged over the groups (a
+    partial sum of each group's share over the row-sharding dims)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    xpl = keep(x, {0: 0})
+    wpl = keep(p["w_gate"], {0: 0})          # the expert shard; FSDP gathered
+    ws = [p[n] for n in ("w_gate", "w_up", "w_down")]
+    ws = [w if list(w.placements) == wpl else w.redistribute(mesh, wpl)
+          for w in ws]
+    e0, ne = local_range(ws[0], 0)
+    rows_pl = [Shard(0) if isinstance(q, Shard) else Replicate()
+               for q in xpl]
+    groups = math.prod(mesh.size(i) for i, q in enumerate(rows_pl)
+                       if isinstance(q, Shard))
+    # y: partial over the expert-sharding mesh dims; the means: partial
+    # over the row-sharding ones
+    ypl = [Partial() if isinstance(q, Shard) else r
+           for q, r in zip(wpl, rows_pl)]
+    mpl = [Partial() if isinstance(q, Shard) else Replicate()
+           for q in rows_pl]
+
+    def local(xl, rw, wg, wu, wd):
+        xf = xl.reshape(-1, xl.shape[-1])
+        top_e, top_p, _ = route(cfg, {"router": {"w": rw}}, xf)
+        keep_ = _keep(cfg, top_e, 1, capacity_factor, dropless)
+        mine = (top_e >= e0) & (top_e < e0 + ne)
+        lp = {"w_gate": wg, "w_up": wu, "w_down": wd}
+        ye = _experts(cfg, lp, xf, torch.where(mine, top_e - e0, 0),
+                      keep_ & mine, capacity_factor, dropless)
+        probs = torch.softmax(xf.float() @ rw.float(), -1)
+        ce = F.one_hot(top_e, e).float().sum(1).mean(0) / k
+        return (_combine(ye, top_p, keep_), probs.mean(0) / groups,
+                ce / groups)
+
+    y, me, ce = map_local(
+        local, mesh, [(x, xpl), (p["router"]["w"], [Replicate()] * mesh.ndim),
+                      *((w, wpl) for w in ws)], (ypl, mpl, mpl))
+    return y, e * torch.sum(me * ce)

@@ -21,11 +21,14 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models.layers import Params, dense, dense_params, group_norm
+from repro_torch.models.shard_hints import is_sharded, keep, map_local, \
+    rows, stepwise
 
 LORA_R = 32
 MIX_NAMES = ("w", "k", "v", "r", "g")
@@ -38,7 +41,9 @@ def _lora(gen, d, out, dtype, stack: tuple = ()) -> Params:
 
 
 def _lora_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return dense(p["b"], torch.tanh(dense(p["a"], x)))
+    # rows: on a mesh, the low-rank hidden (and its gradient) whole on
+    # every rank of a row shard
+    return dense(p["b"], torch.tanh(rows(dense(p["a"], x))))
 
 
 def rwkv6_params(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -130,13 +135,40 @@ def time_mix(cfg: ModelConfig, p: Params, x, s0, x_prev0,
     w = torch.exp(-torch.exp(decay)).reshape(b, t, h, m)
     u = p["bonus_u"].float().reshape(h, m)
     if differentiable:
-        y, s_t = rwkv6_scan_ref(r, k, v, w, u, s0)
+        scan = rwkv6_scan_ref
     else:
-        y, s_t = rwkv6_scan(r, k, v, w, u, s0, s_out)
+        def scan(r, k, v, w, u, s0, s_out=s_out):
+            return rwkv6_scan(r, k, v, w, u, s0, s_out)
+    scan = stepwise(4)(scan)
+    if is_sharded(r):
+        # on a mesh: each rank scans its own rows and heads
+        y, s_t = _scan_sharded(scan, r, k, v, w, u, s0, s_out)
+    else:
+        y, s_t = scan(r, k, v, w, u, s0)
     y = group_norm(y.reshape(b, t, d).to(x.dtype), p["ln_w"], p["ln_b"], h,
                    cfg.norm_eps)
     out = dense(p["wo"], y * g)
     return out, s_t, x[:, -1].float()
+
+
+def _scan_sharded(scan, r, k, v, w, u, s0, s_out):
+    """``scan`` on this rank's shards of rows (dim 0) and heads (dim 2 of
+    [B, T, H, M]; the state's dim 1, u's dim 0); the others gathered.
+    The recurrence is independent across rows and heads."""
+    mesh = r.device_mesh
+    pl = keep(r, {0: 0, 2: 2})
+    spl = [Shard({0: 0, 2: 1}[p.dim]) if isinstance(p, Shard) else p
+           for p in pl]
+    upl = [Shard(0) if isinstance(p, Shard) and p.dim == 2 else Replicate()
+           for p in pl]
+    if s_out is not None and list(s_out.placements) != spl:
+        raise ValueError(f"the state is laid out {s_out.placements}, the "
+                         f"scan's shards {spl}")
+    ins = [(r, pl), (k, pl), (v, pl), (w, pl), (u, upl), (s0, spl)]
+    if s_out is None:
+        return map_local(scan, mesh, ins, (pl, spl))
+    return map_local(lambda *a: scan(*a, s_out=s_out.to_local()), mesh, ins,
+                     (pl, spl))
 
 
 def channel_mix(cfg: ModelConfig, p: Params, x, x_prev0):

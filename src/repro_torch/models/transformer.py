@@ -79,7 +79,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -92,6 +92,8 @@ from repro_torch.models.layers import (Params, attention_params, attn_decode,
                                        decode_inputs, dense_params,
                                        make_kv_cache, normal, rms_norm,
                                        swiglu, swiglu_params)
+from repro_torch.models.shard_hints import (argmax, cache_like, checkpoint,
+                                           rows, take)
 from repro_torch.tree import unstack
 
 Batch = dict[str, Any]
@@ -192,7 +194,9 @@ def _embed_in(cfg: ModelConfig, params: Params, batch: Batch) -> torch.Tensor:
                      .to(DTYPES[cfg.dtype]))
     if "tokens" in batch and "embed" in params:
         tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-        parts.append(params["embed"][tokens])
+        # F.embedding: a DTensor table sharded over d_model gathers
+        # locally (indexing would gather the whole table first)
+        parts.append(F.embedding(tokens, params["embed"]))
     if not parts:
         raise ValueError(f"{cfg.name}: the batch needs 'tokens' and/or "
                          f"'embeds' (an arch without a token embedding "
@@ -207,18 +211,18 @@ def _rwkv_body(cfg: ModelConfig, lp: Params, x, st: Params):
     out, _, tm_last = rwkv.time_mix(cfg, lp, h, st["wkv"], st["tm_prev"],
                                     s_out=st["wkv"])
     st["tm_prev"].copy_(tm_last)
-    x = x + out
+    x = rows(x + out)
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
     out, cm_last = rwkv.channel_mix(cfg, lp, h, st["cm_prev"])
     st["cm_prev"].copy_(cm_last)
-    return x + out
+    return rows(x + out)
 
 
 def _run_rwkv_stack(cfg: ModelConfig, params: Params, x, state: Params):
     """state: stacked [L, ...] rwkv6 state, updated in place layer by
     layer. Returns (x, state)."""
     for lp, st in zip(unstack(params["blocks"]), unstack(state)):
-        x = _rwkv_body(cfg, lp, x, st)
+        x = _rwkv_body(cfg, lp, rows(x), st)
     return x, state
 
 
@@ -226,16 +230,19 @@ def _rwkv_train_body(cfg: ModelConfig, lp: Params, x):
     """One RWKV6 block from a zero state, functional and differentiable
     (JAX's ``_rwkv_body`` in ``forward``); the state it ends in is
     dropped."""
+    x = rows(x)
     b, _, d = x.shape
     m = cfg.rwkv_head_dim
-    prev = x.new_zeros((b, d), dtype=torch.float32)
-    s0 = x.new_zeros((b, d // m, m, m), dtype=torch.float32)
+    # plain zeros (on a mesh: replicated; a DTensor's new_zeros would
+    # copy its layout onto another shape)
+    prev = torch.zeros((b, d), dtype=torch.float32, device=x.device)
+    s0 = torch.zeros((b, d // m, m, m), dtype=torch.float32, device=x.device)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     out, _, _ = rwkv.time_mix(cfg, lp, h, s0, prev, differentiable=True)
-    x = x + out
+    x = rows(x + out)
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
     out, _ = rwkv.channel_mix(cfg, lp, h, prev)
-    return x + out
+    return rows(x + out)
 
 
 def _mlp(cfg: ModelConfig, lp: Params, h, *, dropless: bool = False):
@@ -249,18 +256,19 @@ def _mlp(cfg: ModelConfig, lp: Params, h, *, dropless: bool = False):
 def _attn_body(cfg: ModelConfig, lp: Params, x, positions, causal: bool):
     """One attention block, differentiable: (x, its MoE aux loss; 0 for a
     dense MLP)."""
+    x = rows(x)
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     if cfg.use_mla:
         a, _ = mla_mod.mla_forward(cfg, lp["attn"], h, positions,
                                    causal=causal)
     else:
         a = attn_forward(cfg, lp["attn"], h, positions, causal=causal)
-    x = x + a
+    x = rows(x + a)
     h = rms_norm(x, lp["norm2"], cfg.norm_eps)
     y, aux = _mlp(cfg, lp, h)
     if aux is None:
-        aux = x.new_zeros((), dtype=torch.float32)
-    return x + y, aux
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return rows(x + y), aux
 
 
 def _mamba_body(cfg: ModelConfig, lp: Params, x, st: Params | None):
@@ -268,12 +276,13 @@ def _mamba_body(cfg: ModelConfig, lp: Params, x, st: Params | None):
     views of the stacked state, read and then overwritten in place with
     the state the layer ends in; None runs from a zero state without
     keeping one (differentiable: the train path)."""
+    x = rows(x)
     h = rms_norm(x, lp["norm"], cfg.norm_eps)
     out, new = m2.mamba2_forward(cfg, lp["mixer"], h, state=st)
     if st is not None:
         for key, t in new.items():
             st[key].copy_(t)
-    return x + out
+    return rows(x + out)
 
 
 def _run_zamba_stack(cfg: ModelConfig, params: Params, x, attn_fn,
@@ -291,8 +300,7 @@ def _run_zamba_stack(cfg: ModelConfig, params: Params, x, attn_fn,
         x = attn_fn(x, gi)
         for li in range(gi * per, (gi + 1) * per):
             if remat:
-                x = checkpoint(_mamba_body, cfg, layers[li], x, states[li],
-                               use_reentrant=False, preserve_rng_state=False)
+                x = checkpoint(_mamba_body, cfg, layers[li], x, states[li])
             else:
                 x = _mamba_body(cfg, layers[li], x, states[li])
     return x
@@ -301,7 +309,8 @@ def _run_zamba_stack(cfg: ModelConfig, params: Params, x, attn_fn,
 def _shared_mlp(cfg: ModelConfig, sp: Params, x):
     """The second half of the shared attention block: norm, swiglu,
     residual."""
-    return x + swiglu(sp["mlp"], rms_norm(x, sp["norm2"], cfg.norm_eps))
+    x = rows(x)
+    return rows(x + swiglu(sp["mlp"], rms_norm(x, sp["norm2"], cfg.norm_eps)))
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
@@ -321,7 +330,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
             cfg, params, x,
             lambda x, _: _attn_body(cfg, sp, x, positions, causal)[0],
             remat=remat)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
         return x, {"moe_aux": aux}
     if _is_rwkv(cfg):
         def body(lp, x):
@@ -333,12 +342,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
     for group, _ in STACKS:
         for lp in unstack(params[group]) if group in params else ():
             if remat:
-                x, a = checkpoint(body, lp, x, use_reentrant=False,
-                                  preserve_rng_state=False)
+                x, a = checkpoint(body, lp, x)
             else:
                 x, a = body(lp, x)
             aux = aux + a
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
     return x, {"moe_aux": aux}
 
 
@@ -350,8 +358,8 @@ def _ce_chunk(head: Params, xc, yc, mc):
     """Sums over one chunk: (masked CE, mask, masked correct argmax)."""
     logits = dense(head, xc).float()
     lse = torch.logsumexp(logits, -1)
-    gold = torch.gather(logits, -1, yc[..., None])[..., 0]
-    ncorrect = torch.sum((logits.argmax(-1) == yc) * mc)
+    gold = take(logits, yc)
+    ncorrect = torch.sum((argmax(logits) == yc) * mc)
     return torch.sum((lse - gold) * mc), torch.sum(mc), ncorrect
 
 
@@ -368,8 +376,7 @@ def _chunked_ce(head: Params, x, labels, mask, chunk: int = 512):
     for c0 in range(0, t, chunk):
         sl = slice(c0, c0 + chunk)
         ce, n, nc = checkpoint(_ce_chunk, head, x[:, sl], labels[:, sl],
-                               mask[:, sl], use_reentrant=False,
-                               preserve_rng_state=False)
+                               mask[:, sl])
         tot, cnt, ncorr = tot + ce, cnt + n, ncorr + nc
     cnt = torch.clamp(cnt, min=1.0)
     return tot / cnt, ncorr / cnt
@@ -393,8 +400,9 @@ def _labels_and_mask(cfg: ModelConfig, batch: Batch, dev):
     mask[:, -1] = 0.0
     if "embeds" in batch:
         b, t_img = batch["embeds"].shape[:2]
-        labels = torch.cat([labels.new_zeros((b, t_img)), labels], 1)
-        mask = torch.cat([mask.new_zeros((b, t_img)), mask], 1)
+        labels = torch.cat([torch.zeros((b, t_img), dtype=labels.dtype,
+                                        device=dev), labels], 1)
+        mask = torch.cat([torch.zeros((b, t_img), device=dev), mask], 1)
     return labels, mask
 
 
@@ -433,7 +441,7 @@ def _zamba_prefill(cfg: ModelConfig, params: Params, x, positions):
         vs.append(v)
         return _shared_mlp(cfg, sp, x + a)
 
-    state = m2.mamba2_state(cfg, x.shape[0], device=x.device)
+    state = cache_like(m2.mamba2_state(cfg, x.shape[0], device=x.device))
     x = _run_zamba_stack(cfg, params, x, attn, state)
     return x, {"mamba": state, "attn_k": torch.stack(ks),
                "attn_v": torch.stack(vs)}
@@ -450,13 +458,14 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch):
     x = _embed_in(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     if _is_rwkv(cfg):
-        x, state = _run_rwkv_stack(cfg, params, x, rwkv.rwkv6_state(
-            cfg, x.shape[0], _num_layers(params), device=x.device))
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x, state = _run_rwkv_stack(cfg, params, x, cache_like(
+            rwkv.rwkv6_state(cfg, x.shape[0], _num_layers(params),
+                             device=x.device)))
+        x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, -1]), {"rwkv": state}
     if _is_zamba(cfg):
         x, cache = _zamba_prefill(cfg, params, x, positions)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, -1]), cache
     cache = {}
     for group, name in STACKS:
@@ -464,6 +473,7 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch):
             continue
         kv: dict[str, list] = {}
         for lp in unstack(params[group]):
+            x = rows(x)
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
             if cfg.use_mla:
                 a, (c_kv, k_r) = mla_mod.mla_forward(cfg, lp["attn"], h,
@@ -474,11 +484,11 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch):
                 entries = {"k": k, "v": v}
             for key, t in entries.items():
                 kv.setdefault(key, []).append(t)
-            x = x + a
+            x = rows(x + a)
             h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + _mlp(cfg, lp, h, dropless=True)[0]
+            x = rows(x + _mlp(cfg, lp, h, dropless=True)[0])
         cache[name] = {key: torch.stack(ts) for key, ts in kv.items()}
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
     return _head_logits(params, x[:, -1]), cache
 
 
@@ -516,7 +526,7 @@ def _decode_input(cfg: ModelConfig, params: Params, token) -> torch.Tensor:
     [B, D] embedding in the config's dtype."""
     token = torch.as_tensor(token, device=_device(params))
     if token.dim() == 1:
-        return params["embed"][token.long()][:, None, :]
+        return F.embedding(token.long(), params["embed"])[:, None, :]
     if token.dim() == 2:
         return token.to(DTYPES[cfg.dtype])[:, None, :]
     raise ValueError(f"decode_step takes a [B] token or a [B, D] "
@@ -535,7 +545,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
     b = x.shape[0]
     if _is_rwkv(cfg):
         x, _ = _run_rwkv_stack(cfg, params, x, cache["rwkv"])
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, 0]), cache
     if _is_zamba(cfg):
         sp = params["shared_attn"]
@@ -550,7 +560,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
             return _shared_mlp(cfg, sp, x + a)
 
         x = _run_zamba_stack(cfg, params, x, attn, cache["mamba"])
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, 0]), cache
     slots = next(iter(cache["main"].values())).shape[2]
     positions, kv_len = decode_inputs(cfg, pos, b, slots, x.device)
@@ -558,6 +568,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
         if name not in cache:
             continue
         for lp, lc in zip(unstack(params[group]), unstack(cache[name])):
+            x = rows(x)
             h = rms_norm(x, lp["norm1"], cfg.norm_eps)
             if cfg.use_mla:
                 a, _, _ = mla_mod.mla_decode(cfg, lp["attn"], h, lc["c_kv"],
@@ -565,8 +576,8 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
             else:
                 a, _, _ = attn_decode(cfg, lp["attn"], h, lc["k"], lc["v"],
                                       pos, positions, kv_len)
-            x = x + a
+            x = rows(x + a)
             h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = x + _mlp(cfg, lp, h, dropless=True)[0]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            x = rows(x + _mlp(cfg, lp, h, dropless=True)[0])
+    x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
     return _head_logits(params, x[:, 0]), cache

@@ -690,7 +690,11 @@ class ClusterHarness:
         self.cluster.events = self.events
         if self.metrics is not None:
             self.cluster.install_metrics(self.metrics)
-        # the serving mesh (data_parallel) is refused by ServeConfig
+        # one mesh for every replica (same devices; DESIGN.md §12)
+        mesh = None
+        if config.data_parallel:
+            from repro_torch.launch.mesh import make_serving_mesh
+            mesh = make_serving_mesh(device)
         self.replicas: OrderedDict[str, ClusterReplica] = OrderedDict()
         for i in range(config.replicas):
             name = f"r{i}"
@@ -705,7 +709,7 @@ class ClusterHarness:
             engine = CascadeEngine.from_config(
                 config, local_apply, transport=transport,
                 controller=controller, cache=view, observability=obs,
-                clock=self._clock, device=device)
+                mesh=mesh, clock=self._clock, device=device)
             sched = MicrobatchScheduler.from_config(
                 engine, config, fallback=fallback,
                 admission_share=functools.partial(

@@ -61,8 +61,11 @@ non-blocking copy queued at dispatch right behind the gate, with an event
 recorded after it, which the host half waits on. So the copy never waits
 behind a remote prefill that a transport thread queues later.
 Remote logits are scored on the host as CPU tensors. ``jax.jit`` has no
-counterpart: the steps are plain callables. The serving mesh is not
-ported yet.
+counterpart: the steps are plain callables. With a serving ``mesh``
+(``launch.mesh.make_serving_mesh``; ``data_parallel``) the gated local
+step runs its forward on each ``data`` rank's rows as DTensors and
+gathers the window before the gate (``launch.sharding
+.shard_local_step``), so what is served does not change.
 
 Early emit (DESIGN.md §11): with ``early_emit`` on, an ``Emitter``
 thread waits on each window's event and lands the triple in
@@ -109,6 +112,7 @@ from repro_torch.kernels.confidence_gate.ops import confidence_gate
 from repro_torch.kernels.fused_head_gate.ops import (FusedLocalHead,
                                                      fused_head_gate)
 from repro_torch.kernels.gate_fetch import Emitter, start_fetch
+from repro_torch.models.shard_hints import gather
 from repro_torch.runtime.observability import (EV_BACKEND_AGREEMENT,
                                                EV_DEADLINE_DOWNGRADE,
                                                EV_POLICY_DOWNGRADE,
@@ -362,11 +366,11 @@ def make_gated_local_step(local_apply: Callable, supervisor="max_softmax",
     @torch.no_grad()
     def gated(local_batch, t_local, n_valid, **emit_kw):
         if fused:
-            h = local_apply.trunk(local_batch)
+            h = gather(local_apply.trunk(local_batch))
             return fused_head_gate(h, local_apply.w, local_apply.bias,
                                    t_local, n_valid, supervisor=supervisor,
                                    **emit_kw)
-        logits = local_apply(local_batch)
+        logits = gather(local_apply(local_batch))
         return confidence_gate(logits, t_local, n_valid,
                                supervisor=supervisor, **emit_kw)
 
@@ -569,9 +573,7 @@ class CascadeEngine:
         self.observability = None
         if observability is not None:
             observability.install(self)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: the data-parallel serving mesh is not ported yet")
+        self.mesh = mesh
         self.device = resolve_device(device)
         # early emit (DESIGN.md §11): an Emitter thread lands each
         # window's gate triple in _gate_results as its copy completes.
@@ -591,8 +593,15 @@ class CascadeEngine:
             self._step = make_cascade_step(
                 local_apply, remote_apply, self.capacity, supervisor)
         else:
-            self._local_step = make_gated_local_step(
-                local_apply, supervisor, emit=self._emitter)
+            step = make_gated_local_step(local_apply, supervisor,
+                                         emit=self._emitter)
+            # data-parallel local forward (DESIGN.md §12): the step lays
+            # its batch out over the mesh's data ranks, parameters
+            # replicated, and gathers the rows before the gate
+            if mesh is not None:
+                from repro_torch.launch.sharding import shard_local_step
+                step = shard_local_step(step, mesh)
+            self._local_step = step
 
     # -- ServeConfig construction (DESIGN.md §8) -----------------------
     _UNSET = object()
@@ -630,7 +639,11 @@ class CascadeEngine:
                                      "an explicit transport/router")
                 transport = config.build_router(remote_apply)
             if mesh is cls._UNSET:
-                mesh = None     # data_parallel raises in ServeConfig
+                if config.data_parallel:
+                    from repro_torch.launch.mesh import make_serving_mesh
+                    mesh = make_serving_mesh(device)
+                else:
+                    mesh = None
             eng = cls(local_apply, batch_size=config.batch_size,
                       remote_fraction_budget=config.remote_fraction_budget,
                       t_remote=config.t_remote,

@@ -251,9 +251,9 @@ class ServeConfig:
     # -- cluster scale-out (DESIGN.md §12) ------------------------------
     # replicas > 1 runs N engines behind one logical cascade (shared
     # response cache, shared router, cluster budget reconcile) via
-    # ``repro_torch.runtime.cluster.ClusterHarness``; data_parallel (the
-    # serving mesh) belongs to a later slice of the port and raises
-    # NotImplementedError here; the field stays so configs parse alike.
+    # ``repro_torch.runtime.cluster.ClusterHarness``; data_parallel splits
+    # the local forward's rows over the serving mesh's ``data`` ranks
+    # (``launch.mesh.make_serving_mesh``).
     replicas: int = 1
     data_parallel: bool = False
 
@@ -309,10 +309,6 @@ class ServeConfig:
                              "cost_budget/default_policy/packing/remotes/"
                              "tiers/observability/admission_limit/"
                              "batching")
-        if self.data_parallel:
-            raise NotImplementedError(
-                "data_parallel: the serving mesh is not ported yet; it "
-                "comes with the launch/ slice")
 
     # -- component construction ----------------------------------------
     def build_router(self, remote_apply: Callable, **kw) -> RemoteRouter:

@@ -19,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import loss_fn
 from repro_torch.train.optimizer import (AdamWConfig, adamw_step_,
                                          init_opt_state)
+from repro_torch.models.shard_hints import gather
 from repro_torch.tree import tree_map, unstack
 
 
@@ -69,7 +70,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         loss, metrics, grads = value_and_grad(cfg, params, batch,
                                               remat=remat)
         stats = adamw_step_(opt_cfg, params, grads, opt_state)
-        metrics = dict(metrics, loss=loss, **stats)
+        # on a mesh the metrics may be partial sums: whole on every rank
+        metrics = {k: gather(v) for k, v in dict(metrics, loss=loss,
+                                                 **stats).items()}
         return params, opt_state, metrics
 
     return train_step

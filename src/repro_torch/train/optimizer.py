@@ -19,6 +19,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.models.shard_hints import gather, is_sharded, local
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -47,8 +48,8 @@ def lr_schedule(cfg: AdamWConfig, step: int) -> float:
 
 
 def init_opt_state(params: Any) -> dict:
-    zeros = lambda a: torch.zeros(a.shape, dtype=torch.float32,  # noqa: E731
-                                  device=a.device)
+    # zeros_like keeps a DTensor leaf's layout on its mesh
+    zeros = lambda a: torch.zeros_like(a, dtype=torch.float32)  # noqa: E731
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": 0}
 
@@ -65,11 +66,31 @@ def _chunks(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return t.split(max(1, CHUNK // max(1, math.prod(t.shape[1:]))))
 
 
+def _square_sum(x) -> torch.Tensor:
+    """The sum of ``x``'s squares in fp32, a chunk at a time (a DTensor's
+    over its local shard, then summed over the mesh dims that shard it:
+    the replicated ones hold copies)."""
+    total = sum(torch.sum(torch.square(c.float()))
+                for c in _chunks(local(x)))
+    if not is_sharded(x):
+        return total
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    pl = [Partial() if isinstance(p, Shard) else Replicate()
+          for p in x.placements]
+    return gather(DTensor.from_local(total, x.device_mesh, pl,
+                                     run_check=False))
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in fp32, a chunk at a
     time."""
-    return torch.sqrt(sum(torch.sum(torch.square(c.float()))
-                          for x in tree_leaves(tree) for c in _chunks(x)))
+    return torch.sqrt(sum(_square_sum(x) for x in tree_leaves(tree)))
+
+
+def _locals(*leaf):
+    """A DTensor leaf's local shards, all laid out alike (AdamW is
+    elementwise); plain tensors as they are."""
+    return tuple(local(t) for t in leaf)
 
 
 @torch.no_grad()
@@ -79,14 +100,20 @@ def adamw_step_(cfg: AdamWConfig, params: Any, grads: Any,
     and ``step``) are updated, ``grads`` only read. Returns the stats
     {"grad_norm" (0-d tensor), "lr"}."""
     step = state["step"] + 1
+    # a DTensor gradient may hold partial sums: settle them as the
+    # parameter is laid out before the norm
+    grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                     if is_sharded(g) and list(g.placements)
+                     != list(p.placements) else g, grads, params)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_schedule(cfg, step)
     b1c = 1 - cfg.b1 ** step
     b2c = 1 - cfg.b2 ** step
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state["m"]), tree_leaves(state["v"])):
-        decay = p.dim() >= 2      # decay matrices only (norms/bias exempt)
+    for leaf in zip(tree_leaves(params), tree_leaves(grads),
+                    tree_leaves(state["m"]), tree_leaves(state["v"])):
+        decay = leaf[0].dim() >= 2  # decay matrices only (norms/bias exempt)
+        p, g, m, v = _locals(*leaf)
         for pc, gc, mc, vc in zip(_chunks(p), _chunks(g), _chunks(m),
                                   _chunks(v)):
             gc = gc.float() * scale

@@ -23,6 +23,18 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree: Any, path: tuple = ()) -> Any:
+    """``tree_map`` with ``fn(path, leaf)``: ``path`` the tuple of dict
+    keys and list indices, as strings, from the root to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, t, path + (str(i),))
+                          for i, t in enumerate(tree))
+    return fn(path, tree)
+
+
 def tree_leaves(tree: Any) -> list:
     """Leaves in the same (insertion) order ``tree_map`` visits them."""
     if isinstance(tree, dict):

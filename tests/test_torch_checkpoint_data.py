@@ -225,8 +225,13 @@ def test_make_batches_matches_jax(arch):
 
 
 def test_train_launcher_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """``--mesh`` trains on a mesh now; one that does not fit the
+    process count (one process here, no ``torchrun``) is refused with a
+    ``ValueError``, as ``jax.make_mesh`` refuses a device count."""
+    with pytest.raises(ValueError, match="mesh"):
         launch.parse_args(["--mesh", "2,1", "--device", "cpu"])
+    assert dict(launch.parse_args(["--mesh", "1,1", "--device", "cpu"])
+                .mesh.shape) == {"data": 1, "model": 1}
 
 
 def test_train_launcher_setup_follows_jax_schedule():

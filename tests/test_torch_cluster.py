@@ -408,13 +408,13 @@ def test_serveconfig_cluster_validation():
 
 def test_data_parallel_is_refused_until_the_mesh_is_ported():
     """JAX shards the local step over a serving mesh (a numeric no-op on
-    one device); the port has no mesh yet and refuses the option, alone
-    and beside replicas."""
+    one device); the port now has one (``launch.mesh.make_serving_mesh``)
+    and takes the option as JAX does, alone and beside replicas; only
+    the fused path refuses it (``test_serveconfig_cluster_validation``)."""
     for kw in ({"data_parallel": True},
                {"data_parallel": True, "replicas": 2, "adaptive": True}):
-        jserving.ServeConfig(**kw)
-        with pytest.raises(NotImplementedError, match="data_parallel"):
-            tserving.ServeConfig(**kw)
+        assert jserving.ServeConfig(**kw).data_parallel
+        assert tserving.ServeConfig(**kw).data_parallel
 
 
 # ------------------------------------------------------------- bench

@@ -91,6 +91,40 @@ def test_family_module_imports_alone_without_jax_or_repro(module):
     assert out.returncode == 0, out.stderr
 
 
+MESH_MODULES = ["repro_torch.launch.mesh", "repro_torch.launch.sharding",
+                "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                "repro_torch.analysis.roofline", "repro_torch.analysis.perf",
+                "repro_torch.analysis.report",
+                "repro_torch.models.shard_hints"]
+
+
+@pytest.mark.parametrize("module", MESH_MODULES)
+def test_mesh_and_analysis_module_imports_alone_without_jax_or_repro(module):
+    """The mesh and analysis toolchain's modules, each imported first and
+    alone in a fresh interpreter that refuses ``jax`` and ``repro``."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name == "repro" or name.startswith("repro."):
+                    raise ImportError("refused: " + name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        sys.path[:0] = [{str(ROOT / "src")!r}]
+        importlib.import_module({module!r})
+        bad = [m for m, mod in sys.modules.items() if mod is not None
+               and (m == "repro" or m.startswith(("repro.", "jax")))]
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+
+
 def _imported(path: Path) -> set[str]:
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):

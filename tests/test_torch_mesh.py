@@ -1,0 +1,453 @@
+"""The port's real meshes: the serving mesh, MoE dispatch groups and
+``launch.train --mesh``.
+
+* On a one-device mesh (a gloo group of one) the serving engine serves
+  what JAX's ``data_parallel=True`` engine serves on one device; beside
+  8 transport threads running rwkv6 or zamba2 prefills it serves as
+  without the mesh (the mesh is the local step's thread's only).
+* MoE with two dispatch groups (the ambient mesh's ``data`` size) agrees
+  with JAX's ``moe_forward`` with its ``_dispatch_groups`` set to 2,
+  under capacity, where the groups change which pairs drop.
+* One ``torchrun`` of two gloo processes (this file's ``__main__``) runs
+  the rest on a mesh of two CPU devices: ``constrain`` moving real
+  shards without changing a value; the gated local step and a whole
+  serve through ``ServeConfig(data_parallel=True)``, bitwise alike to
+  no mesh (conf, pred and idx; every response and the bill); reduced
+  yi-6b, deepseek-v2-lite, rwkv6 and zamba2 trained on ``--mesh 2,1``
+  and ``--mesh 1,2`` against one process; a prefill and decode over a
+  cache whose slots the mesh shards, against one process; and the
+  sharded MoE layer (rows over ``data``, or experts over ``model``)
+  against JAX's: output, balance loss and gradients. One spawn keeps
+  the suite inside its time limit.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import torch.distributed as dist  # noqa: E402
+
+from repro.models import moe as jmoe  # noqa: E402
+from repro.serving.engine import BILLING_FIELDS  # noqa: E402
+from repro_torch.launch import train as launch  # noqa: E402
+from repro_torch.launch.mesh import Mesh, make_serving_mesh  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.shard_hints import use_mesh  # noqa: E402
+from tests.test_torch_families import MOE_ARCHS, carry, moe_layer  # noqa: E402
+from tests.test_torch_serving import (FIELDS, N_REQ, assert_gapped,  # noqa: E402, F401
+                                      gap_cut, serve_both, world)
+
+ROOT = Path(__file__).resolve().parents[1]
+# one process's losses against the mesh's: fp32 sums of the same
+# products split over two ranks (measured: 1e-6)
+LOSS_RTOL = 1e-5
+# the families whose mesh paths differ: dense GQA, MLA + MoE (expert
+# parallelism, dispatch groups), the RWKV6 scan and zamba2's SSD
+TRAIN_ARCHS = ("yi-6b", "deepseek-v2-lite-16b", "rwkv6-1.6b", "zamba2-7b")
+
+
+@pytest.fixture
+def group_of_one():
+    """A gloo group of one in this process, torn down after."""
+    assert not dist.is_initialized()
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_one_device_serving_mesh_serves_as_jax_data_parallel(world,
+                                                             group_of_one):
+    t_local = gap_cut(world["local_conf"])
+    t_remote = gap_cut(world["remote_conf"])
+    assert_gapped(world["local_conf"], t_local, "local conf vs t_local")
+    assert_gapped(world["remote_conf"], t_remote, "remote conf vs t_remote")
+    (jr, js), (tr, ts) = serve_both(
+        world, {"data_parallel": True, "t_local": t_local,
+                "t_remote": t_remote})
+    assert len(tr) == N_REQ
+    for a, b in zip(jr, tr):
+        assert [getattr(a, f) for f in FIELDS] == \
+            [getattr(b, f) for f in FIELDS], a.uid
+    for f in BILLING_FIELDS:
+        assert getattr(js, f) == getattr(ts, f), f
+    assert ts.escalations > 0
+    mesh = make_serving_mesh("cpu")
+    assert dict(mesh.shape) == {"data": 1, "model": 1}
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_serving_mesh_stays_off_the_transport_threads(arch, group_of_one):
+    """``data_parallel=True`` under continuous batching with 8 transport
+    workers: the remote model's prefills run on the transport threads
+    while the local step runs on the serving mesh. The mesh is the
+    local step's thread's only, so the recurrent remote's prefill
+    (``cache_like``) makes plain states there, and every response and
+    the bill equal ``data_parallel=False``'s. The local step is slowed
+    (the same answers) so that prefills do overlap it, and the test
+    asserts they did."""
+    import dataclasses
+    import threading
+    import time
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import BILLING_FIELDS as FIELDS_T
+
+    args = serve.parse_args([
+        "--device", "cpu", "--smoke", "--remote-arch", arch, "--requests",
+        "64", "--batch", "16", "--set", "batching=continuous", "--set",
+        "completion_mode=streaming", "--set", "pipeline_depth=2", "--set",
+        "transport.max_concurrent=8", "--set", "transport.timeout_s=300"])
+    stack = serve.build_stack(args)
+    inside, overlaps = [0], [0]
+    lock = threading.Lock()
+    remote = stack.remote_apply
+
+    def slow_local(x):
+        with lock:
+            inside[0] += 1
+        try:
+            time.sleep(0.02)
+            return stack.local_apply(x)
+        finally:
+            with lock:
+                inside[0] -= 1
+
+    def watched_remote(batch):
+        with lock:
+            overlaps[0] += inside[0] > 0
+        return remote(batch)
+
+    stack.remote_apply = watched_remote
+    served = []
+    for dp in (False, True):
+        stack.cfg = dataclasses.replace(stack.cfg, data_parallel=dp)
+        res = serve.run(args, stack, local_apply=slow_local)
+        assert (res.engine.mesh is not None) == dp
+        assert res.engine.stats.remote_calls > 0
+        served.append((sorted((tuple(getattr(r, f) for f in FIELDS)
+                               for r in res.responses)),
+                       [getattr(res.engine.stats, f) for f in FIELDS_T]))
+    assert overlaps[0] > 0, "no remote prefill overlapped a local step"
+    assert served[0] == served[1]
+
+
+@pytest.mark.parametrize("mode", [1.25, 0.5])
+def test_moe_two_dispatch_groups_match_jax(monkeypatch, mode):
+    """Two groups of 48 tokens, each with its own capacity and queue
+    positions: JAX with ``_dispatch_groups`` patched to 2 (restored by
+    monkeypatch), the port under an ambient mesh whose ``data`` is 2."""
+    jcfg, cfg, jp, x = moe_layer("qwen3-moe-235b-a22b")
+    monkeypatch.setattr(jmoe, "_dispatch_groups", lambda n: 2)
+    jy, jaux = jmoe.moe_forward(jcfg, jp, jnp.asarray(x),
+                                capacity_factor=mode)
+    tp = carry(jp)
+    with torch.no_grad(), use_mesh(Mesh({"data": 2, "model": 1})):
+        assert moe._dispatch_groups(96) == 2
+        ty, taux = moe.moe_forward(cfg, tp, torch.from_numpy(x),
+                                   capacity_factor=mode)
+    with torch.no_grad():
+        one, _ = moe.moe_forward(cfg, tp, torch.from_numpy(x),
+                                 capacity_factor=mode)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=1e-5)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    assert not np.allclose(ty.numpy(), one.numpy(), atol=1e-5), \
+        "the groups should drop other pairs than one group"
+
+
+def test_train_mesh_that_does_not_fit_raises():
+    with pytest.raises(ValueError, match="mesh 2,2"):
+        launch.parse_args(["--mesh", "2,2", "--device", "cpu"])
+    assert not dist.is_initialized()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_two_process_gloo_mesh():
+    env = dict(os.environ, PYTHONPATH=f"src{os.pathsep}.",
+               OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "2", "--master-addr", "localhost", "--master-port",
+         str(_free_port()), str(Path(__file__).resolve())],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    assert r.returncode == 0, (r.stdout[-3000:], r.stderr[-3000:])
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("{")][-1]
+    res = json.loads(line)
+    assert res["constrain"] and res["gate"] and res["serve"], res
+    for arch, got in res["train"].items():
+        # two dispatch groups drop other pairs than one, in JAX too: the
+        # data-sharded MoE run is held to one process with two groups
+        base = got.get("one_2_groups", got["one"])
+        np.testing.assert_allclose(got["2,1"], base, rtol=LOSS_RTOL,
+                                   err_msg=arch)
+        np.testing.assert_allclose(got["1,2"], got["one"], rtol=LOSS_RTOL,
+                                   err_msg=arch)
+        assert got["one"][-1] != got["one"][0], arch
+    dec = res["decode"]
+    assert dec["layout"] == [None, "data", "model", None, None], dec
+    # fp32 logits of a few units: the split softmax's rescale changes the
+    # order of the sums only
+    assert dec["max_abs_err"] <= 1e-5 * max(dec["scale"], 1.0), dec
+    assert len(res["moe"]) == 2 * len(MOE_ARCHS) * 3
+    for case, m in res["moe"].items():
+        # the tolerances of test_moe_two_dispatch_groups_match_jax
+        assert m["max_abs_err"] <= 1e-5, (case, m)
+        assert m["aux"] == pytest.approx(m["jax_aux"], rel=1e-5), (case, m)
+        # fp32 gradients summed over the ranks in another order
+        assert m["grad_rel_err"] <= 1e-5, (case, m)
+
+
+# ------------------------------------------------------------ the worker
+
+def _worker() -> None:
+    """Rank r of a two-process gloo group (``torchrun``)."""
+    from repro_torch.core.supervisors import max_softmax
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.launch.sharding import (NamedSharding, distribute,
+                                             shard_local_step)
+    from repro_torch.models import surrogate as S
+    from repro_torch.models import transformer as T
+    from repro_torch.configs import get_config
+    from repro_torch.models.shard_hints import constrain, gather
+    from repro_torch.serving import Request, ServeConfig
+    from repro_torch.serving.engine import make_gated_local_step
+
+    dist.init_process_group("gloo")
+    out = {}
+
+    # constrain moves real shards and never a value
+    mesh = device_mesh(Mesh({"data": 2, "model": 1}), "gloo")
+    x = torch.arange(4 * 6, dtype=torch.float32).reshape(4, 6)
+    d = distribute(x, NamedSharding(mesh, ()))
+    with use_mesh(mesh):
+        c = constrain(d, "data", None)
+        ok = torch.equal(c.to_local(), x.chunk(2)[dist.get_rank()])
+        ok &= torch.equal(gather(c), x)
+    out["constrain"] = bool(ok)
+
+    # the serving world: a surrogate and a reduced yi-6b, seeded alike on
+    # both ranks
+    scfg = S.SurrogateConfig(name="local", vocab_size=128, max_len=24,
+                             d_model=32, num_heads=2, d_ff=32,
+                             num_classes=8, dropout=0.0)
+    sp = S.init_params(scfg, torch.Generator().manual_seed(0))
+    sp["out"]["w"] = sp["out"]["w"] * 30.0
+    rcfg = get_config("yi-6b").reduced()
+    rp = T.init_params(rcfg, torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(1)
+    toks = rng.integers(1, 128, (64, 24)).astype(np.int32)
+
+    @torch.no_grad()
+    def local(tk):
+        return S.apply(scfg, sp, tk)
+
+    @torch.no_grad()
+    def remote(batch):
+        logits, _ = T.prefill(rcfg, rp, {"tokens": batch["tokens"]})
+        return logits[:, :8]
+
+    # the gated step alone, one window: bitwise alike
+    step = make_gated_local_step(local)
+    sharded = shard_local_step(step, mesh)
+    conf = max_softmax(local(torch.from_numpy(toks))).numpy()
+    t_local = float(np.median(conf))
+    tl = torch.tensor(t_local)
+    n = torch.tensor(16, dtype=torch.int32)
+    same = True
+    for w in range(4):
+        xw = torch.from_numpy(toks[w * 16:(w + 1) * 16])
+        a, b = step(xw, tl, n), sharded(xw, tl, n)
+        same &= all(torch.equal(a[k], b[k]) for k in ("conf", "pred", "idx"))
+    out["gate"] = bool(same)
+
+    # a whole serve through ServeConfig: every response and the bill
+    served = []
+    for dp in (False, True):
+        cfg = ServeConfig(batch_size=16, remote_fraction_budget=0.5,
+                          t_local=t_local, t_remote=0.0, data_parallel=dp)
+        eng, sched = cfg.build(local, remote, fallback=lambda r: -1,
+                               device="cpu")
+        try:
+            for i in range(64):
+                sched.submit(Request(uid=i, local_input=toks[i],
+                                     remote_input={"tokens": toks[i]}))
+            resp = sorted(sched.flush(), key=lambda r: r.uid)
+        finally:
+            eng.close()
+        assert (eng.mesh is not None) == dp
+        served.append(([tuple(getattr(r, f) for f in
+                              ("uid", "prediction", "source",
+                               "disposition", "backend", "cost"))
+                        for r in resp],
+                       [getattr(eng.stats, f) for f in BILLING_FIELDS]))
+    out["serve"] = served[0] == served[1] and served[0][1][0] > 0
+
+    # reduced models on one process, then on --mesh 2,1 and 1,2
+    def losses(arch, extra, groups=0):
+        args = launch.parse_args(["--device", "cpu", "--smoke", "--arch",
+                                  arch, "--steps", "3", "--batch", "4",
+                                  "--seq", "32", *extra])
+        cfg, params, opt, stepf = launch.setup(args)
+        batches = launch.make_batches(cfg, args.batch, args.seq)
+        ls = []
+        for _ in range(args.steps):
+            batch = launch.to_device(next(batches), args.device)
+            # groups: one process under a mesh plan (no devices) whose
+            # data axis makes that many MoE dispatch groups
+            with (use_mesh(Mesh({"data": groups, "model": 1})) if groups
+                  else contextlib.nullcontext()):
+                params, opt, m = stepf(params, opt, batch)
+            ls.append(float(m["loss"]))
+        return ls
+
+    out["train"] = {}
+    for arch in TRAIN_ARCHS:
+        res = out["train"][arch] = {"one": losses(arch, [])}
+        if get_config(arch).is_moe:
+            res["one_2_groups"] = losses(arch, [], groups=2)
+        for mesh_arg in ("2,1", "1,2"):
+            res[mesh_arg] = losses(arch, ["--mesh", mesh_arg])
+
+    out["decode"] = _slot_sharded_decode(rcfg)
+    out["moe"] = _sharded_moe()
+    if dist.get_rank() == 0:
+        print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def _slot_sharded_decode(rcfg) -> dict:
+    """Prefill, then 4 decode steps, of reduced yi-6b with one kv head on
+    a (1, 2) mesh: the model axis cannot split one head, so the cache
+    shards its slots and each decode step combines two ranks' partial
+    softmaxes (``layers._decode_attn_sharded``). Against the same on one
+    process: the largest logit difference."""
+    import dataclasses
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.shard_hints import gather
+    from repro_torch.serving.generate import graft
+    from repro_torch.tree import tree_map
+
+    mesh = device_mesh(Mesh({"data": 1, "model": 2}), "gloo")
+    cfg = dataclasses.replace(rcfg, num_kv_heads=1)
+    params = T.init_params(cfg, torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(5)
+    prompt = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (2, 12)).astype(np.int32))
+    toks = torch.from_numpy(
+        rng.integers(1, cfg.vocab_size, (4, 2)).astype(np.int32))
+
+    def run(p, on_mesh):
+        def put(t):
+            return sh.distribute(t, sh.NamedSharding(
+                mesh, sh.batch_spec(mesh, tuple(t.shape)))) if on_mesh \
+                else t
+        with torch.no_grad(), (use_mesh(mesh) if on_mesh
+                               else contextlib.nullcontext()):
+            logits, pc = T.prefill(cfg, p, {"tokens": put(prompt)})
+            cache = graft(T.make_cache(cfg, 2, 16, device="cpu"),
+                          tree_map(gather, pc))
+            if on_mesh:
+                cache = sh.distribute_tree(cache, sh.cache_shardings(
+                    cfg, mesh, 2, 16))
+            layout = sh.spec_of(cache["main"]["k"].placements, mesh, 5) \
+                if on_mesh else None
+            outs = [gather(logits)]
+            for i in range(len(toks)):
+                logits, cache = T.decode_step(cfg, p, put(toks[i]), cache,
+                                              prompt.shape[1] + i)
+                outs.append(gather(logits))
+        return torch.stack(outs), layout
+
+    want, _ = run(params, False)
+    got, layout = run(sh.distribute_tree(params, sh.params_shardings(
+        cfg, mesh)), True)
+    return {"max_abs_err": float((got - want).abs().max()),
+            "scale": float(want.abs().max()), "layout": layout}
+
+
+def _sharded_moe() -> dict:
+    """One reduced MoE layer (``test_torch_families.moe_layer``'s) as
+    DTensors on a (2, 1) mesh, each data rank's rows its dispatch group,
+    against JAX's ``moe_forward`` with ``_dispatch_groups`` patched to 2;
+    and on a (1, 2) mesh, the experts sharded over ``model`` (expert
+    parallelism, one group), against JAX's unpatched: for each, the
+    largest output difference, both balance losses and the largest
+    gradient difference (of ``sum(y * c) + aux``, c fixed) relative to
+    the largest gradient, of x, the router and each expert stack."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models.shard_hints import gather
+
+    res = {}
+    layouts = {"data": (Mesh({"data": 2, "model": 1}), 2),
+               "model": (Mesh({"data": 1, "model": 2}), 1)}
+    for name, (plan, groups) in layouts.items():
+        mesh = device_mesh(plan, "gloo")
+        for arch in MOE_ARCHS:
+            jcfg, cfg, jp, x = moe_layer(arch)
+            c = np.random.default_rng(11).standard_normal(
+                x.shape).astype(np.float32)
+            tp = carry(jp)
+            tp = {k: sh.distribute(v, sh.NamedSharding(
+                      mesh, ("model", None, None)))
+                  if k in ("w_gate", "w_up", "w_down") else v
+                  for k, v in tp.items()}
+            tx = sh.distribute(torch.from_numpy(x), sh.NamedSharding(
+                mesh, sh.batch_spec(mesh, x.shape)))
+            for mode in ("dropless", 1.25, 0.5):
+                kw = ({"dropless": True} if mode == "dropless"
+                      else {"capacity_factor": mode})
+                orig = jmoe._dispatch_groups
+                jmoe._dispatch_groups = lambda n, g=groups: g
+                try:
+                    jy, jaux = jmoe.moe_forward(jcfg, jp, jnp.asarray(x),
+                                                **kw)
+                    jg = jax.grad(lambda p, x: jnp.sum(jmoe.moe_forward(
+                        jcfg, p, x, **kw)[0] * c) + jmoe.moe_forward(
+                        jcfg, p, x, **kw)[1], argnums=(0, 1))(
+                        jp, jnp.asarray(x))
+                finally:
+                    jmoe._dispatch_groups = orig
+                leaves = [tp["router"]["w"], tp["w_gate"], tp["w_up"],
+                          tp["w_down"], tx]
+                for t in leaves:
+                    t.grad = None
+                    t.requires_grad_(True)
+                with use_mesh(mesh):
+                    ty, taux = moe.moe_forward(cfg, tp, tx, **kw)
+                    (torch.sum(ty * torch.from_numpy(c)) + taux).backward()
+                want = [jg[0]["router"]["w"], jg[0]["w_gate"],
+                        jg[0]["w_up"], jg[0]["w_down"], jg[1]]
+                res[f"{name} {arch} {mode}"] = {
+                    "max_abs_err": float(np.abs(
+                        gather(ty).detach().numpy() - np.asarray(jy)).max()),
+                    "aux": float(gather(taux)), "jax_aux": float(jaux),
+                    "grad_rel_err": max(
+                        float(np.abs(gather(t.grad).numpy() - np.asarray(w))
+                              .max() / np.abs(np.asarray(w)).max())
+                        for t, w in zip(leaves, want))}
+    return res
+
+
+if __name__ == "__main__":
+    _worker()

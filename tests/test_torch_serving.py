@@ -245,20 +245,24 @@ def test_content_keys_hash_alike():
     ({"data_parallel": True}, "data_parallel"),
 ])
 def test_unported_serve_config_options_raise(override, match):
-    """``data_parallel`` (the serving mesh) is still unported and raises,
-    alone and beside the tier ladder or the replica cluster, which both
-    build."""
-    if match != "data_parallel":
-        assert getattr(ServeConfig(**override), match)
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        ServeConfig(**{**override, "data_parallel": True})
+    """``data_parallel`` (the serving mesh) is ported: it builds, alone
+    and beside the tier ladder or the replica cluster; only the fused
+    path refuses it, as JAX's does."""
+    assert getattr(ServeConfig(**override), match)
+    assert ServeConfig(**{**override, "data_parallel": True}).data_parallel
+    with pytest.raises(ValueError, match="data_parallel"):
+        ServeConfig(fused=True, data_parallel=True)
 
 
 @pytest.mark.parametrize("kw,match", [({"mesh": object()}, "mesh")])
 def test_unported_engine_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        CascadeEngine(lambda x: x, batch_size=4, remote_fraction_budget=0.5,
-                      t_remote=0.5, transport=object(), device="cpu", **kw)
+    """The engine takes a serving mesh now: it keeps it and wraps its
+    gated local step (``launch.sharding.shard_local_step``)."""
+    eng = CascadeEngine(lambda x: x, batch_size=4,
+                        remote_fraction_budget=0.5, t_remote=0.5,
+                        transport=object(), device="cpu", **kw)
+    assert getattr(eng, match) is kw[match]
+    assert eng._local_step.__name__ == "sharded_step"
 
 
 def test_engine_refuses_missing_cuda():
