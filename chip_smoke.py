@@ -108,7 +108,8 @@ toolkit. In order, it
    CPU; the yi-6b serve window's prefill, its decode step and train
    step, rwkv6's and h2o-danube's decode steps), each beside the median
    this run measured (``roofline``), and runs the 256-rank fake-mesh
-   dry-run of yi-6b and rwkv6-1.6b at decode_32k in subprocesses
+   dry-run of yi-6b and rwkv6-1.6b at decode_32k and of yi-6b at
+   prefill_32k in subprocesses, the last held to JAX's dot FLOPs a chip
    (``dryrun``);
 12. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
@@ -221,7 +222,15 @@ ROOFLINE_PATHS = {"yi-6b serve window prefill": ("yi-6b", "prefill", 8, 48),
 HAND_BOUND_MS = {"yi-6b decode step": 3.7, "yi-6b train step": 38.0,
                  "rwkv6-1.6b decode step": 0.93,
                  "h2o-danube-1.8b decode step": 1.1}
-DRYRUN_COMBOS = (("yi-6b", "decode_32k"), ("rwkv6-1.6b", "decode_32k"))
+DRYRUN_COMBOS = (("yi-6b", "decode_32k"), ("rwkv6-1.6b", "decode_32k"),
+                 ("yi-6b", "prefill_32k"))
+# JAX's dot FLOPs a chip on the single-pod mesh, from its partitioned HLO
+# (unrolled lowerings at 2 and 4 layers extrapolated to 32, 512 forced
+# host devices on the CPU): `PYTHONPATH=src:. python tests/dryrun_parity.py
+# --arch yi-6b --shape prefill_32k --only jax --json out.jsonl`. The
+# port's count of a combo here may exceed it by DRYRUN_FLOPS_MARGIN at most
+JAX_DOT_FLOPS = {("yi-6b", "prefill_32k"): 115723664359424.0}
+DRYRUN_FLOPS_MARGIN = 1.10
 
 
 def log(obj) -> None:
@@ -2829,18 +2838,18 @@ def roofline_phase(measured: dict) -> dict:
 
 
 def start_dryrun() -> list:
-    """Start ``python -m repro_torch.launch.dryrun`` for yi-6b and
-    rwkv6-1.6b at decode_32k on the 256-rank fake mesh, each in its own
-    process, the two at once (CPU work: they run beside the roofline
-    phase's counting). Returns (arch, process, output file) triples."""
+    """Start ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRYRUN_COMBOS`` on the 256-rank fake mesh, each in its own process,
+    all at once (CPU work: they run beside the roofline phase's
+    counting). Returns ((arch, shape), process, output file) triples."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
            "OMP_NUM_THREADS": "2"}
     started = []
     for arch, shape in DRYRUN_COMBOS:
-        out = ROOT / "build" / f"dryrun_{arch}.jsonl"
+        out = ROOT / "build" / f"dryrun_{arch}_{shape}.jsonl"
         out.parent.mkdir(exist_ok=True)
         out.unlink(missing_ok=True)
-        started.append((arch, subprocess.Popen(
+        started.append(((arch, shape), subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
              arch, "--shape", shape, "--json", str(out)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
@@ -2850,21 +2859,30 @@ def start_dryrun() -> list:
 
 def dryrun_phase(started: list) -> dict:
     """Wait for ``start_dryrun``'s processes: each exits 0, prints
-    ``OK`` and writes its record."""
+    ``OK`` and writes its record; a combo of ``JAX_DOT_FLOPS`` counts at
+    most ``DRYRUN_FLOPS_MARGIN`` times JAX's dot FLOPs a chip (its temp
+    bytes logged beside)."""
     try:
-        for arch, p, _ in started:
+        for combo, p, _ in started:
             stdout, stderr = p.communicate(timeout=600)
             assert p.returncode == 0 and "OK" in stdout, \
-                (arch, stdout[-2000:], stderr[-2000:])
+                (combo, stdout[-2000:], stderr[-2000:])
     finally:
         for _, p, _ in started:
             p.kill()
-    recs = [json.loads(out.read_text().splitlines()[-1])
-            for _, _, out in started]
-    for rec in recs:
+    out = {}
+    for combo, _, path in started:
+        rec = json.loads(path.read_text().splitlines()[-1])
         assert rec["status"] == "ok", rec
-        log({"phase": "dryrun", **rec})
-    return {f"{r['arch']} {r['shape']}": r for r in recs}
+        want = JAX_DOT_FLOPS.get(combo)
+        if want is not None:
+            got = rec["roofline"]["flops_per_chip"]
+            rec["jax_dot_flops"], rec["port_over_jax"] = want, got / want
+            assert got <= DRYRUN_FLOPS_MARGIN * want, (combo, got, want)
+        log({"phase": "dryrun", "temp_bytes":
+             rec["memory"]["temp_size_in_bytes"], **rec})
+        out[" ".join(combo)] = rec
+    return out
 
 
 # ----------------------------------------------------------------------------

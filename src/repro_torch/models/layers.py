@@ -28,9 +28,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.models.shard_hints import (fit, is_sharded, keep, like,
-                                             local_range, map_local, pin,
-                                             split_heads, write_slot)
+from repro_torch.models.shard_hints import (is_sharded, keep, like,
+                                             local_range, map_local,
+                                             merge_heads, pin, split_heads,
+                                             write_slot)
 
 Params = dict
 
@@ -205,10 +206,15 @@ def gqa_attention(q, k, v, *, causal: bool, q_offset: int = 0,
 def _qkv(cfg: ModelConfig, p: Params, x, positions):
     b, t, _ = x.shape
     hd = cfg.resolved_head_dim
-    # the query heads split into kv-head groups (gqa_attention): on a
-    # mesh they follow the kv heads' layout
-    q = fit(split_heads(dense(p["wq"], x), cfg.num_heads, hd), 2,
-            cfg.num_kv_heads)
+    # on a mesh the query heads stay split as wq's output is, as GSPMD
+    # keeps them; k and v are gathered along an axis their heads do not
+    # divide (per_head_shard then reads only the KV heads a rank needs).
+    # Heads that do not divide the axis (qwen2-7b's 28 on 16) split as
+    # torch.chunk splits: whole heads, ceil(28 / 16) = 2 on the first
+    # ranks. GSPMD splits head_dim there instead (each chip's logits a
+    # partial sum of its share of hd, all-reduced): 1.75 heads' work a
+    # chip, the port's first ranks 2
+    q = split_heads(dense(p["wq"], x), cfg.num_heads, hd, split=True)
     k = split_heads(dense(p["wk"], x), cfg.num_kv_heads, hd)
     v = split_heads(dense(p["wv"], x), cfg.num_kv_heads, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -218,16 +224,47 @@ def _qkv(cfg: ModelConfig, p: Params, x, positions):
 
 def per_head_shard(fn, q, *kv):
     """``fn(q, *kv)`` -> [B, T, H, ...]; on a mesh, run on this rank's
-    rows and heads (attention is independent across both; DTensor's
-    einsum rules would gather around the grouped-head reshapes). ``q``
-    [B, T, H, hd] and each of ``kv`` [B, S, K, hd] keep their row and
-    head shards (``fit`` made q's heads follow the kv heads'), and
-    every other dim is gathered."""
+    rows and query heads (attention is independent across both;
+    DTensor's einsum rules would gather around the grouped-head
+    reshapes). ``q`` [B, T, H, hd] keeps its row and head shards, each
+    of ``kv`` [B, S, K, hd] its row shards and any head shard (K
+    dividing the axis, aligned with q's), every other dim gathered. A
+    rank holding query heads [h0, h0 + n) reads KV heads h0 // G ..
+    (h0 + n - 1) // G of what it holds (head h reads h // G); where its
+    heads do not fall in whole groups of one size, each gets its KV
+    head's copy (a group of 1: the same dots). The output keeps q's
+    layout."""
     if not is_sharded(q):
         return fn(q, *kv)
-    pl = keep(q, {0: 0, 2: 2})
-    return map_local(lambda *a: (fn(*a),), q.device_mesh,
-                     [(x, pl) for x in (q, *kv)], (pl,))[0]
+    mesh = q.device_mesh
+    qpl, kvpl = keep(q, {0: 0, 2: 2}), keep(kv[0], {0: 0, 2: 2})
+    q = q if list(q.placements) == qpl else q.redistribute(mesh, qpl)
+    kv = [x if list(x.placements) == kvpl else x.redistribute(mesh, kvpl)
+          for x in kv]
+    h0, n = local_range(q, 2)
+    k0 = local_range(kv[0], 2)[0]
+    g = q.shape[2] // kv[0].shape[2]
+    reads = [(h0 + j) // g - k0 for j in range(n)]
+    lo, hi = (reads[0], reads[-1] + 1) if n else (0, 0)
+    grouped = n and n % (hi - lo) == 0 and reads == [
+        lo + j // (n // (hi - lo)) for j in range(n)]
+
+    def local(q, *kv):
+        if not n:
+            # no query heads here (28 heads on 16 ranks leave the last
+            # two without): an empty output that still reads q, k and v,
+            # so that backward reaches their gradients' collectives on
+            # this rank as on the others (the gradients come back zero)
+            out = q.new_zeros((*q.shape[:3], kv[-1].shape[-1]))
+            return (out + sum(x[:, :, :0].sum() for x in (q, *kv)),)
+        idx = None if grouped else torch.tensor(reads, device=q.device)
+        kv = [x[:, :, lo:hi] if grouped else x.index_select(2, idx)
+              for x in kv]
+        return (fn(q, *kv),)
+
+    shape = (*q.shape[:3], kv[-1].shape[-1])
+    return map_local(local, mesh, [(x, x.placements) for x in (q, *kv)],
+                     (qpl,), shapes=(shape,))[0]
 
 
 def attn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -240,8 +277,8 @@ def attn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         lambda q, k, v: gqa_attention(q, k, v, causal=causal,
                                       window=cfg.sliding_window), q, k, v)
     # pin: on a mesh, the gradient comes back through the head merge laid
-    # out as the heads are (fit may have gathered them)
-    return dense(p["wo"], pin(out.reshape(b, t, -1)))
+    # out as the merged heads are
+    return dense(p["wo"], pin(merge_heads(out)))
 
 
 def attn_prefill(cfg: ModelConfig, p: Params, x, positions):
@@ -251,7 +288,7 @@ def attn_prefill(cfg: ModelConfig, p: Params, x, positions):
     out = per_head_shard(
         lambda q, k, v: attention(q, k, v, causal=True,
                                   window=cfg.sliding_window), q, k, v)
-    out = dense(p["wo"], out.reshape(b, t, -1))
+    out = dense(p["wo"], merge_heads(out))
     if cfg.sliding_window and t > cfg.sliding_window:
         # keep only the window, rolled so position p lands at ring slot
         # p % window (the decode-side convention)

@@ -31,7 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (Params, apply_rope, dense,
                                        dense_params, rms_norm, scores_fp32)
 from repro_torch.models.shard_hints import (is_sharded, keep, map_local,
-                                            rows, split_heads)
+                                            merge_heads, rows, split_heads)
 
 
 def mla_params(gen: torch.Generator, cfg: ModelConfig, dtype,
@@ -55,7 +55,7 @@ def mla_params(gen: torch.Generator, cfg: ModelConfig, dtype,
 def _split_q(cfg: ModelConfig, q: torch.Tensor):
     b, t, _ = q.shape
     dn = cfg.qk_nope_head_dim
-    q = split_heads(q, cfg.num_heads, dn + cfg.qk_rope_head_dim)
+    q = split_heads(q, cfg.num_heads, dn + cfg.qk_rope_head_dim, split=True)
     return q[..., :dn], q[..., dn:]
 
 
@@ -85,8 +85,10 @@ def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions, *,
     q_n, q_r = _split_q(cfg, dense(p["wq"], x))
     q_r = apply_rope(q_r, positions, cfg.rope_theta)
     c_kv, k_r = _latents(cfg, p, x, positions)
-    k_n = split_heads(dense(p["w_uk"], c_kv), h, dn)
-    v = split_heads(dense(p["w_uv"], c_kv), h, dv)
+    # on a mesh the heads of q, k and v stay split alike, unevenly where
+    # they do not divide the axis (layers._qkv)
+    k_n = split_heads(dense(p["w_uk"], c_kv), h, dn, split=True)
+    v = split_heads(dense(p["w_uv"], c_kv), h, dv, split=True)
 
     def attend(q_n, q_r, k_n, k_r, v):
         return (_attend(cfg, q_n, q_r, k_n, k_r, v, causal, q_chunk),)
@@ -97,10 +99,11 @@ def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor, positions, *,
         pl = keep(q_n, {0: 0, 2: 2})
         out = map_local(attend, q_n.device_mesh,
                         [(q_n, pl), (q_r, pl), (k_n, pl),
-                         (k_r, keep(q_n, {0: 0})), (v, pl)], (pl,))[0]
+                         (k_r, keep(q_n, {0: 0})), (v, pl)], (pl,),
+                        shapes=((b, t, h, dv),))[0]
     else:
         out = attend(q_n, q_r, k_n, k_r, v)[0]
-    return dense(p["wo"], out.reshape(b, t, h * dv)), (c_kv, k_r[:, :, 0, :])
+    return dense(p["wo"], merge_heads(out)), (c_kv, k_r[:, :, 0, :])
 
 
 def _attend(cfg: ModelConfig, q_n, q_r, k_n, k_r, v, causal: bool,

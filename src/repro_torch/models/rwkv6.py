@@ -27,8 +27,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 from repro_torch.models.layers import Params, dense, dense_params, group_norm
-from repro_torch.models.shard_hints import is_sharded, keep, map_local, \
-    rows, stepwise
+from repro_torch.models.shard_hints import constrain, is_sharded, keep, \
+    map_local, rows, stepwise
 
 LORA_R = 32
 MIX_NAMES = ("w", "k", "v", "r", "g")
@@ -41,9 +41,14 @@ def _lora(gen, d, out, dtype, stack: tuple = ()) -> Params:
 
 
 def _lora_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    # rows: on a mesh, the low-rank hidden (and its gradient) whole on
-    # every rank of a row shard
-    return dense(p["b"], torch.tanh(rows(dense(p["a"], x))))
+    # on a mesh both products split over ``model``, as GSPMD splits them:
+    # the first over d_model (the low-rank hidden a partial sum, made
+    # whole on every rank of a row shard by rows), the second over its
+    # output, gathered back by rows
+    a = {"w": constrain(p["a"]["w"], "model", None)}
+    b = {"w": constrain(p["b"]["w"], None, "model")}
+    h = torch.tanh(rows(dense(a, constrain(x, "data", None, "model"))))
+    return rows(dense(b, h))
 
 
 def rwkv6_params(gen: torch.Generator, cfg: ModelConfig, dtype,

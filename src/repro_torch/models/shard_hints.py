@@ -13,13 +13,14 @@ JAX's SPMD partitioner reshards around an op that its operands' layout
 does not fit; DTensor refuses such an op, or gathers around it, instead.
 The other hints take the partitioner's place: ``split_heads``/``fit``
 gather a head split whose heads do not divide the ``model`` axis (GQA
-keys with 4 heads on 16 devices); ``map_local`` runs work that is
-independent across sharded dims (attention, recurrences) on each rank's
-shards; ``rows`` and ``pin`` fix a value's (and its gradient's) layout;
-``argmax``, ``take`` and ``write_slot`` work along a sharded last or
-slot dim; ``cache_like`` lays a state the model makes out as a cache;
-``gather`` brings a DTensor back to one plain tensor where a kernel or a
-host step needs the whole of it.
+keys with 4 heads on 16 devices), or split it again unevenly (query
+heads), and ``merge_heads`` undoes that split; ``map_local`` runs work
+that is independent across sharded dims (attention, recurrences) on each
+rank's shards; ``rows`` and ``pin`` fix a value's (and its gradient's)
+layout; ``argmax``, ``take`` and ``write_slot`` work along a sharded
+last or slot dim; ``cache_like`` lays a state the model makes out as a
+cache; ``gather`` brings a DTensor back to one plain tensor where a
+kernel or a host step needs the whole of it.
 
 The ambient mesh is set by ``use_mesh`` (JAX: ``use_abstract_mesh`` /
 ``jax.set_mesh``) for the thread that enters it, as JAX's mesh context
@@ -128,26 +129,59 @@ def constrain(x, *axes):
 def fit(x, dim: int, n: int):
     """``x`` with its dim ``dim`` gathered along every mesh axis that
     shards it and does not divide ``n`` (a size the dim is about to be
-    split into: heads, or groups of heads); a plain tensor, or a DTensor
-    that fits already, as it is."""
+    split into: heads, or groups of heads), or that shards a dim of size
+    1 (one head: DTensor cannot reshape such a dim, even over a mesh
+    axis of 1); a plain tensor, or a DTensor that fits already, as it
+    is."""
     if not is_sharded(x):
         return x
     from torch.distributed.tensor import Replicate, Shard
     dim %= x.dim()
     mesh = x.device_mesh
     pl = [Replicate() if isinstance(p, Shard) and p.dim % x.dim() == dim
-          and n % mesh.size(i) else p for i, p in enumerate(x.placements)]
+          and (n % mesh.size(i) or x.shape[dim] == 1) else p
+          for i, p in enumerate(x.placements)]
     if pl == list(x.placements):
         return x
     return x.redistribute(mesh, pl)
 
 
-def split_heads(x, heads: int, hd: int):
+def split_heads(x, heads: int, hd: int, *, split: bool = False):
     """``x [..., heads * hd]`` viewed as ``[..., heads, hd]``, a DTensor
     first gathered along any axis that does not divide ``heads`` (JAX's
-    partitioner reshards around that reshape itself)."""
-    x = fit(x, -1, heads)
-    return x.reshape(*x.shape[:-1], heads, hd)
+    partitioner reshards around that reshape itself). With ``split``
+    those axes split the heads again, unevenly as ``torch.chunk`` splits
+    (each rank slices its own: no communication), so every rank keeps
+    whole heads and the first ranks ceil(heads / n) of them."""
+    y = fit(x, -1, heads)
+    y = y.reshape(*y.shape[:-1], heads, hd)
+    return _split_again(x, y, -2) if split else y
+
+
+def merge_heads(x):
+    """``x [..., H, hd]`` flattened to ``[..., H * hd]``, a DTensor whose
+    heads an axis splits unevenly first gathered along it (DTensor
+    cannot flatten an uneven split) and the flattened dim split along
+    it again where it divides (the row split of the out-projection that
+    follows)."""
+    y = fit(x, -2, x.shape[-2])
+    y = y.reshape(*y.shape[:-2], -1)
+    return _split_again(x, y, -1, even=True)
+
+
+def _split_again(x, y, dim: int, even: bool = False):
+    """``y`` (``x`` after ``fit`` and a reshape) with ``dim`` split along
+    every mesh axis that ``fit`` gathered (only where it divides, with
+    ``even``)."""
+    if not is_sharded(x):
+        return y
+    from torch.distributed.tensor import Shard
+    pl = [Shard(y.dim() + dim) if a != b and not (
+        even and y.shape[dim] % y.device_mesh.size(i)) else b
+        for i, (a, b) in enumerate(zip(x.placements, y.placements))]
+    if pl == list(y.placements):
+        return y
+    return y.redistribute(y.device_mesh, pl)
 
 
 def local_range(x, dim: int) -> tuple[int, int]:
@@ -212,14 +246,15 @@ class _ScaleGrad(torch.autograd.Function):
         return g * ctx.k, None
 
 
-def map_local(fn, mesh, ins, outs):
+def map_local(fn, mesh, ins, outs, shapes=None):
     """Run ``fn`` on this rank's shards: ``ins`` pairs each argument (a
     DTensor, a plain tensor taken as replicated, or None) with the
     placements it is laid out by first; ``fn`` returns plain tensors,
     made DTensors by the placements in ``outs`` (a ``Partial`` one: the
-    ranks' results sum). For work that is independent across the
-    sharded dims (a recurrence per row and head), where DTensor's own
-    rules would gather.
+    ranks' results sum), of the global ``shapes`` where an output is
+    split unevenly (else each shard is taken as an even one). For work
+    that is independent across the sharded dims (a recurrence per row
+    and head), where DTensor's own rules would gather.
 
     Gradients: along a mesh dim that splits the work (an input shard or
     a partial output there), each rank's gradient of an input it holds
@@ -246,14 +281,25 @@ def map_local(fn, mesh, ins, outs):
         args.append(_ContiguousGrad.apply(x.to_local(grad_placements=grad)))
     res = fn(*args)
     out = []
-    for r, pl in zip(res, outs):
+    for j, (r, pl) in enumerate(zip(res, outs)):
         n = 1
         for i in split:
             n *= mesh.size(i) if isinstance(pl[i], Replicate) else 1
         if n > 1 and r.requires_grad:
             r = _ScaleGrad.apply(r, 1.0 / n)
-        out.append(DTensor.from_local(r, mesh, pl, run_check=False))
+        shape = None if shapes is None else torch.Size(shapes[j])
+        out.append(DTensor.from_local(
+            r, mesh, pl, run_check=False, shape=shape,
+            stride=None if shape is None else _contiguous_stride(shape)))
     return tuple(out)
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= d
+    return tuple(reversed(stride))
 
 
 def keep(x, dims: dict):

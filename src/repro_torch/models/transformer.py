@@ -435,6 +435,10 @@ def _zamba_prefill(cfg: ModelConfig, params: Params, x, positions):
     ks, vs = [], []
 
     def attn(x, _):
+        # rows: on a mesh, the residual stream whole on a row shard (a
+        # mamba2 layer may leave it split over d_model), so the head
+        # projections split their heads and not a partial sum of them
+        x = rows(x)
         h = rms_norm(x, sp["norm1"], cfg.norm_eps)
         a, (k, v) = attn_prefill(cfg, sp["attn"], h, positions)
         ks.append(k)
@@ -553,6 +557,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
             cfg, pos, b, cache["attn_k"].shape[2], x.device)
 
         def attn(x, gi):
+            x = rows(x)         # as in _zamba_prefill
             h = rms_norm(x, sp["norm1"], cfg.norm_eps)
             a, _, _ = attn_decode(cfg, sp["attn"], h, cache["attn_k"][gi],
                                   cache["attn_v"][gi], pos, positions,

@@ -13,9 +13,12 @@
   shards without changing a value; the gated local step and a whole
   serve through ``ServeConfig(data_parallel=True)``, bitwise alike to
   no mesh (conf, pred and idx; every response and the bill); reduced
-  yi-6b, deepseek-v2-lite, rwkv6 and zamba2 trained on ``--mesh 2,1``
-  and ``--mesh 1,2`` against one process; a prefill and decode over a
-  cache whose slots the mesh shards, against one process; and the
+  yi-6b, deepseek-v2-lite, rwkv6 and zamba2, and reduced yi-6b with 1
+  KV head and 4, 3 or 1 query heads (split 2/2, 2/1 and 1/0 over
+  ``model``), trained on ``--mesh 2,1`` and ``--mesh 1,2`` against one
+  process; with those heads a prefill (the query heads split over
+  ``model``, each rank reading the one KV head) and decode over a cache
+  whose slots the mesh shards, against one process; and the
   sharded MoE layer (rows over ``data``, or experts over ``model``)
   against JAX's: output, balance loss and gradients. One spawn keeps
   the suite inside its time limit.
@@ -57,6 +60,24 @@ LOSS_RTOL = 1e-5
 # the families whose mesh paths differ: dense GQA, MLA + MoE (expert
 # parallelism, dispatch groups), the RWKV6 scan and zamba2's SSD
 TRAIN_ARCHS = ("yi-6b", "deepseek-v2-lite-16b", "rwkv6-1.6b", "zamba2-7b")
+# reduced yi-6b with (query, KV) heads whose one KV head does not divide
+# the model axis of --mesh 1,2, so the query heads stay split there:
+# 4 heads 2 and 2; 3 heads 2 and 1, as torch.chunk splits them; 1 head,
+# which DTensor's broadcasting (rope's [.., T, 1, hd] angles) replicates
+# back onto both ranks, a dim of 1 never staying split
+GQA_ARCHS = {"yi-6b-kv1": (4, 1), "yi-6b-3q1kv": (3, 1),
+             "yi-6b-1q1kv": (1, 1)}
+# the prefill + decode's (query heads, KV heads, head_dim) on a (1, 2)
+# mesh: those three; and 6 on 3 KV heads, which rank 0's query heads 0-2
+# read 0, 0, 1, in no whole groups (each head gets its KV head's copy)
+DECODE_HEADS = {"4/1": (4, 1, 64), "3/1": (3, 1, 64), "1/1": (1, 1, 64),
+                "6/3": (6, 3, 32)}
+# on four ranks (--mesh 1,4): 6 query heads on 2 KV heads split 2, 2, 2
+# and 0, as qwen2-7b's 28 on 16 leave two ranks without. The empty rank's
+# backward must reach the KV gradients' collectives as the others' do
+# (layers.per_head_shard), else the group hangs
+EMPTY_RANK_HEADS = (6, 2, 64)
+EMPTY_RANK_ARCH = "yi-6b-6q2kv"
 
 
 @pytest.fixture
@@ -180,32 +201,47 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_two_process_gloo_mesh():
+def _torchrun(n: int, timeout: int) -> dict:
+    """This file's ``__main__`` in ``n`` gloo processes: rank 0's JSON."""
     env = dict(os.environ, PYTHONPATH=f"src{os.pathsep}.",
                OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
-         "2", "--master-addr", "localhost", "--master-port",
+         str(n), "--master-addr", "localhost", "--master-port",
          str(_free_port()), str(Path(__file__).resolve())],
-        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        capture_output=True, text=True, timeout=timeout, env=env, cwd=ROOT)
     assert r.returncode == 0, (r.stdout[-3000:], r.stderr[-3000:])
     line = [ln for ln in r.stdout.splitlines() if ln.startswith("{")][-1]
-    res = json.loads(line)
-    assert res["constrain"] and res["gate"] and res["serve"], res
+    return json.loads(line)
+
+
+def _check_train(res: dict) -> None:
     for arch, got in res["train"].items():
         # two dispatch groups drop other pairs than one, in JAX too: the
         # data-sharded MoE run is held to one process with two groups
         base = got.get("one_2_groups", got["one"])
-        np.testing.assert_allclose(got["2,1"], base, rtol=LOSS_RTOL,
-                                   err_msg=arch)
-        np.testing.assert_allclose(got["1,2"], got["one"], rtol=LOSS_RTOL,
-                                   err_msg=arch)
+        for mesh_arg in set(got) - {"one", "one_2_groups"}:
+            np.testing.assert_allclose(
+                got[mesh_arg], base if mesh_arg == "2,1" else got["one"],
+                rtol=LOSS_RTOL, err_msg=f"{arch} {mesh_arg}")
         assert got["one"][-1] != got["one"][0], arch
-    dec = res["decode"]
+
+
+def _check_decode(dec: dict) -> None:
     assert dec["layout"] == [None, "data", "model", None, None], dec
     # fp32 logits of a few units: the split softmax's rescale changes the
     # order of the sums only
     assert dec["max_abs_err"] <= 1e-5 * max(dec["scale"], 1.0), dec
+
+
+def test_two_process_gloo_mesh():
+    res = _torchrun(2, 600)
+    assert res["constrain"] and res["gate"] and res["serve"], res
+    assert all({"2,1", "1,2"} <= set(got) for got in res["train"].values())
+    _check_train(res)
+    assert set(res["decode"]) == set(DECODE_HEADS), res["decode"]
+    for dec in res["decode"].values():
+        _check_decode(dec)
     assert len(res["moe"]) == 2 * len(MOE_ARCHS) * 3
     for case, m in res["moe"].items():
         # the tolerances of test_moe_two_dispatch_groups_match_jax
@@ -213,6 +249,16 @@ def test_two_process_gloo_mesh():
         assert m["aux"] == pytest.approx(m["jax_aux"], rel=1e-5), (case, m)
         # fp32 gradients summed over the ranks in another order
         assert m["grad_rel_err"] <= 1e-5, (case, m)
+
+
+def test_four_process_gloo_mesh_leaves_a_rank_without_heads():
+    """6 query heads on ``--mesh 1,4``: the rank without heads takes part
+    in the backward's collectives (a hang otherwise), and the losses,
+    prefill and decode agree with one process."""
+    res = _torchrun(4, 300)
+    assert set(res["train"][EMPTY_RANK_ARCH]) == {"one", "1,4"}, res
+    _check_train(res)
+    _check_decode(res["decode"])
 
 
 # ------------------------------------------------------------ the worker
@@ -301,23 +347,7 @@ def _worker() -> None:
     out["serve"] = served[0] == served[1] and served[0][1][0] > 0
 
     # reduced models on one process, then on --mesh 2,1 and 1,2
-    def losses(arch, extra, groups=0):
-        args = launch.parse_args(["--device", "cpu", "--smoke", "--arch",
-                                  arch, "--steps", "3", "--batch", "4",
-                                  "--seq", "32", *extra])
-        cfg, params, opt, stepf = launch.setup(args)
-        batches = launch.make_batches(cfg, args.batch, args.seq)
-        ls = []
-        for _ in range(args.steps):
-            batch = launch.to_device(next(batches), args.device)
-            # groups: one process under a mesh plan (no devices) whose
-            # data axis makes that many MoE dispatch groups
-            with (use_mesh(Mesh({"data": groups, "model": 1})) if groups
-                  else contextlib.nullcontext()):
-                params, opt, m = stepf(params, opt, batch)
-            ls.append(float(m["loss"]))
-        return ls
-
+    losses = _losses
     out["train"] = {}
     for arch in TRAIN_ARCHS:
         res = out["train"][arch] = {"one": losses(arch, [])}
@@ -325,20 +355,91 @@ def _worker() -> None:
             res["one_2_groups"] = losses(arch, [], groups=2)
         for mesh_arg in ("2,1", "1,2"):
             res[mesh_arg] = losses(arch, ["--mesh", mesh_arg])
+    # reduced yi-6b with one KV head: on --mesh 1,2 each rank keeps its
+    # query heads and reads the one KV head, whose gradient is the two
+    # ranks' partial sums (layers.per_head_shard)
+    with _gqa_configs({a: (*h, 64) for a, h in GQA_ARCHS.items()}):
+        for arch in GQA_ARCHS:
+            out["train"][arch] = {
+                "one": _losses(arch, [], smoke=False),
+                **{m: _losses(arch, ["--mesh", m], smoke=False)
+                   for m in ("2,1", "1,2")}}
 
-    out["decode"] = _slot_sharded_decode(rcfg)
+    out["decode"] = {k: _slot_sharded_decode(rcfg, *h)
+                     for k, h in DECODE_HEADS.items()}
     out["moe"] = _sharded_moe()
     if dist.get_rank() == 0:
         print(json.dumps(out), flush=True)
     dist.destroy_process_group()
 
 
-def _slot_sharded_decode(rcfg) -> dict:
-    """Prefill, then 4 decode steps, of reduced yi-6b with one kv head on
-    a (1, 2) mesh: the model axis cannot split one head, so the cache
-    shards its slots and each decode step combines two ranks' partial
-    softmaxes (``layers._decode_attn_sharded``). Against the same on one
-    process: the largest logit difference."""
+def _losses(arch, extra, groups=0, smoke=True) -> list:
+    """Three training steps' losses of ``arch`` (reduced with ``smoke``)
+    through ``launch.train``: on one process, or with ``extra`` on a
+    mesh."""
+    args = launch.parse_args(["--device", "cpu", "--arch", arch,
+                              "--steps", "3", "--batch", "4", "--seq",
+                              "32", *(["--smoke"] if smoke else []),
+                              *extra])
+    cfg, params, opt, stepf = launch.setup(args)
+    batches = launch.make_batches(cfg, args.batch, args.seq)
+    ls = []
+    for _ in range(args.steps):
+        batch = launch.to_device(next(batches), args.device)
+        # groups: one process under a mesh plan (no devices) whose data
+        # axis makes that many MoE dispatch groups
+        with (use_mesh(Mesh({"data": groups, "model": 1})) if groups
+              else contextlib.nullcontext()):
+            params, opt, m = stepf(params, opt, batch)
+        ls.append(float(m["loss"]))
+    return ls
+
+
+@contextlib.contextmanager
+def _gqa_configs(heads: dict):
+    """``launch.get_config`` also knowing each name of ``heads`` as
+    reduced yi-6b with its (query heads, KV heads, head_dim)."""
+    import dataclasses
+    orig = launch.get_config
+    launch.get_config = lambda a: dataclasses.replace(
+        orig("yi-6b").reduced(), name=a, num_heads=heads[a][0],
+        num_kv_heads=heads[a][1], head_dim=heads[a][2]) \
+        if a in heads else orig(a)
+    try:
+        yield
+    finally:
+        launch.get_config = orig
+
+
+def _empty_rank_worker() -> None:
+    """Rank r of a four-process gloo group (``torchrun``): reduced yi-6b
+    with 6 query heads on 2 KV heads, which ``--mesh 1,4`` splits 2, 2,
+    2 and 0; three training steps against one process, and a prefill +
+    decode over a slot-sharded cache against one process."""
+    from repro_torch.configs import get_config
+
+    dist.init_process_group("gloo")
+    with _gqa_configs({EMPTY_RANK_ARCH: EMPTY_RANK_HEADS}):
+        out = {"train": {EMPTY_RANK_ARCH: {
+            "one": _losses(EMPTY_RANK_ARCH, [], smoke=False),
+            "1,4": _losses(EMPTY_RANK_ARCH, ["--mesh", "1,4"],
+                           smoke=False)}}}
+    out["decode"] = _slot_sharded_decode(get_config("yi-6b").reduced(),
+                                         *EMPTY_RANK_HEADS, model=4)
+    if dist.get_rank() == 0:
+        print(json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def _slot_sharded_decode(rcfg, heads: int, kv: int, hd: int,
+                         model: int = 2) -> dict:
+    """Prefill, then 4 decode steps, of reduced yi-6b with ``heads``
+    query and ``kv`` KV heads on a (1, ``model``) mesh whose model axis
+    the KV heads do not divide: the prefill splits the query heads, each rank
+    reading the KV heads they use (``layers.per_head_shard``), the
+    cache shards its slots and each decode step combines two ranks'
+    partial softmaxes (``layers._decode_attn_sharded``). Against the
+    same on one process: the largest logit difference."""
     import dataclasses
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import device_mesh
@@ -347,8 +448,9 @@ def _slot_sharded_decode(rcfg) -> dict:
     from repro_torch.serving.generate import graft
     from repro_torch.tree import tree_map
 
-    mesh = device_mesh(Mesh({"data": 1, "model": 2}), "gloo")
-    cfg = dataclasses.replace(rcfg, num_kv_heads=1)
+    mesh = device_mesh(Mesh({"data": 1, "model": model}), "gloo")
+    cfg = dataclasses.replace(rcfg, num_heads=heads, num_kv_heads=kv,
+                              head_dim=hd)
     params = T.init_params(cfg, torch.Generator().manual_seed(3))
     rng = np.random.default_rng(5)
     prompt = torch.from_numpy(
@@ -450,4 +552,4 @@ def _sharded_moe() -> dict:
 
 
 if __name__ == "__main__":
-    _worker()
+    _empty_rank_worker() if os.environ["WORLD_SIZE"] == "4" else _worker()
