@@ -108,9 +108,10 @@ toolkit. In order, it
    CPU; the yi-6b serve window's prefill, its decode step and train
    step, rwkv6's and h2o-danube's decode steps), each beside the median
    this run measured (``roofline``), and runs the 256-rank fake-mesh
-   dry-run of yi-6b and rwkv6-1.6b at decode_32k and of yi-6b at
-   prefill_32k in subprocesses, the last held to JAX's dot FLOPs a chip
-   (``dryrun``);
+   dry-run of yi-6b and rwkv6-1.6b at decode_32k, of yi-6b at
+   prefill_32k and of h2o-danube-1.8b at long_500k (batch 1: d_model
+   laid over the idle ``data`` axis) in subprocesses, the last two held
+   to JAX's dot FLOPs a chip (``dryrun``);
 12. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
@@ -223,13 +224,17 @@ HAND_BOUND_MS = {"yi-6b decode step": 3.7, "yi-6b train step": 38.0,
                  "rwkv6-1.6b decode step": 0.93,
                  "h2o-danube-1.8b decode step": 1.1}
 DRYRUN_COMBOS = (("yi-6b", "decode_32k"), ("rwkv6-1.6b", "decode_32k"),
-                 ("yi-6b", "prefill_32k"))
+                 ("yi-6b", "prefill_32k"), ("h2o-danube-1.8b", "long_500k"))
 # JAX's dot FLOPs a chip on the single-pod mesh, from its partitioned HLO
-# (unrolled lowerings at 2 and 4 layers extrapolated to 32, 512 forced
-# host devices on the CPU): `PYTHONPATH=src:. python tests/dryrun_parity.py
-# --arch yi-6b --shape prefill_32k --only jax --json out.jsonl`. The
-# port's count of a combo here may exceed it by DRYRUN_FLOPS_MARGIN at most
-JAX_DOT_FLOPS = {("yi-6b", "prefill_32k"): 115723664359424.0}
+# (unrolled lowerings at 2 and 4 layers extrapolated to the full depth,
+# 512 forced host devices on the CPU): `PYTHONPATH=src:. python
+# tests/dryrun_parity.py --arch A --shape S --only jax --json out.jsonl`,
+# its "walked_dot_flops" for h2o-danube long_500k (the batch-1 decode,
+# whose dots JAX's own count drops as they end their fusions: 33423360).
+# The port's count of a combo here may exceed it by DRYRUN_FLOPS_MARGIN
+# at most
+JAX_DOT_FLOPS = {("yi-6b", "prefill_32k"): 115723664359424.0,
+                 ("h2o-danube-1.8b", "long_500k"): 47088640.0}
 DRYRUN_FLOPS_MARGIN = 1.10
 
 

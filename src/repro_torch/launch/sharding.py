@@ -204,6 +204,66 @@ def batch_spec(mesh, shape: tuple, *, batch_dim: int = 0) -> tuple:
     return tuple(spec)
 
 
+def width_axes(mesh, width: int) -> tuple:
+    """The batch axes over which GSPMD lays the residual stream's
+    d_model (``width``) out when a batch does not divide them, or ()
+    where it keeps it whole.
+
+    JAX's hints pin no activation there: the embedding's d_model split
+    over ``model`` is all GSPMD starts from, and it moves that split onto
+    the idle batch axes by a collective-permute where each of their
+    shards lies inside one ``model`` shard, i.e. where their size is a
+    multiple of ``model``'s. Per-chip dots of JAX's one-layer decode at
+    batch 1 (reduced h2o-danube, yi-6b, rwkv6, zamba2; h2o-danube at
+    full width), (contraction, output) a chip for d_model D, ``model``
+    M and batch axes N:
+
+    * 2 x 2, 4 x 2, 4 x 4, 8 x 2, 8 x 4, pod 2 x data 2 x model 4 and
+      pod 2 x 4 x 2, 16 x 16 and 2 x 16 x 16: a column-parallel product
+      of the stream contracts D / N (all batch axes: 80 for h2o-danube's
+      ``w_gate`` on 2 x 16 x 16, [80] x [80, 432]) where its output a
+      chip is below D, and takes the whole D (the stream gathered)
+      where it is not: reduced yi-6b's ``w_gate`` (512 / 2 = 256 = D)
+      on 2 x 2, its head (512 / 4 = 128) split on 4 x 4, a head of
+      1024 / 4 = 256 whole and 960 / 4 = 240 split, at D = 512 a d_ff
+      of 2040 / 4 = 510 split, a vocab of 2064 / 4 = 516 whole; the
+      partial sums are all-reduced over the batch axes;
+    * a row-parallel product into the stream gives D / M outputs a chip
+      (h2o-danube's ``w_down`` [432] x [432, 160] on both production
+      meshes, reduced [256] x [256, 128] on 4 x 2), all-reduced over
+      ``model`` and permuted back;
+    * 2 x 4, 3 x 4 (N not a multiple of M) and 4 x 1, 8 x 1 (``model``
+      1, the embedding whole): no split; every product whole over the
+      batch axes, as before.
+
+    A prefill at batch 1 on 4 x 4 and 2 x 2 is laid out the same way
+    (reduced h2o-danube, also with 2 KV heads on 4 and 1 on 2, rwkv6,
+    zamba2; a one-layer step of the 2-on-4 case alone compiles with
+    whole contractions, so read JAX's choice off two layers or more)."""
+    ba = batch_axes(mesh)
+    n = 1
+    for a in ba:
+        n *= _axis(mesh, a)
+    m = _axis(mesh, "model") if "model" in mesh.axis_names else 1
+    if m == 1 or n % m or width % n:
+        return ()
+    return ba
+
+
+def stream_spec(mesh, shape: tuple) -> tuple:
+    """The residual stream's spec for an activation ``[B, ..., D]``: the
+    batch dim over ("pod","data") when it divides (``batch_spec``);
+    else d_model over them where ``width_axes`` says GSPMD puts it
+    there; else replicated."""
+    spec = batch_spec(mesh, shape)
+    if any(spec):
+        return spec
+    ax = width_axes(mesh, shape[-1])
+    if not ax:
+        return spec
+    return (None,) * (len(shape) - 1) + (ax if len(ax) > 1 else ax[0],)
+
+
 def input_shardings(cfg: ModelConfig, mesh, batch_shapes: Any) -> Any:
     """NamedSharding tree for a batch tree of (fake) tensors."""
     return tree_map(

@@ -28,10 +28,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention.ops import attention
-from repro_torch.models.shard_hints import (is_sharded, keep, like,
+from repro_torch.models.shard_hints import (batch_rank, get_mesh,
+                                             is_sharded, keep, like,
                                              local_range, map_local,
-                                             merge_heads, pin, split_heads,
-                                             write_slot)
+                                             merge_heads, pin, project,
+                                             split_heads, write_slot)
 
 Params = dict
 
@@ -63,7 +64,7 @@ def dense_params(gen: torch.Generator, d_in: int, d_out: int, dtype,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = project(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
@@ -351,7 +352,9 @@ def _decode_attn_sharded(q, k_cache, v_cache, kv_len):
     mesh shards the cache of a model whose kv heads do not divide the
     ``model`` axis (``launch.sharding.cache_spec``). The kernel has no
     split-KV form, so sharded slots decode on the CPU only: the
-    dry-run's fake tensors."""
+    dry-run's fake tensors. Where the batch leaves the batch axes idle
+    (``_idle_heads``) the weighted sum of the values runs on a share of
+    the heads and the output is [B, H * hd], split over those axes."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = k_cache.device_mesh
     q = like(k_cache, q)
@@ -391,10 +394,52 @@ def _decode_attn_sharded(q, k_cache, v_cache, kv_len):
 
     scale = torch.exp(m - reduce(m, "max"))
     den = reduce(e.sum(-1, keepdim=True) * scale, "sum")
-    num = reduce(torch.einsum("bkgs,bskh->bkgh", e * scale, vl.float()),
-                 "sum")
-    out = (num / den).reshape(b, h, hd).to(ql.dtype)
-    return DTensor.from_local(out, mesh, qpl, run_check=False)
+    idle = _idle_heads(k_cache, h, hd)
+    if idle is None:
+        num = reduce(torch.einsum("bkgs,bskh->bkgh", e * scale,
+                                  vl.float()), "sum")
+        out = (num / den).reshape(b, h, hd).to(ql.dtype)
+        return DTensor.from_local(out, mesh, qpl, run_check=False)
+    (h0, nh), (lo, n), opl = idle
+    heads = torch.arange(h0, h0 + nh, device=ql.device)
+    wts = (e * scale).reshape(b, h, ns)[:, h0:h0 + nh]
+    vsel = vl.float().index_select(2, heads // (h // kh))
+    num = torch.einsum("bjs,bsjd->bjd", wts, vsel).reshape(b, -1)
+    num = reduce(num[:, lo - h0 * hd:lo - h0 * hd + n], "sum")
+    den = den.reshape(b, h).repeat_interleave(hd, -1)[:, lo:lo + n]
+    return DTensor.from_local((num / den).to(ql.dtype), mesh, opl,
+                              run_check=False)
+
+
+def _idle_heads(cache, h: int, hd: int):
+    """The slot-sharded decode's share of the heads where the batch
+    leaves the batch axes idle (``launch.sharding.width_axes`` of
+    H * hd). GSPMD's chip then weights the values of gcd(H, model)-th
+    of the heads (reduced h2o-danube on 4 x 4: 8 heads 2 a chip, 6
+    heads 3, 12 heads 3; 8 heads on 4 x 2 and 8 x 2, 4; at full width
+    32 heads 2 on both production meshes, qwen2-7b's 28 heads 7), a
+    group of the batch axes' ranks the same heads. Each rank takes the
+    group's heads and keeps its own (H * hd / N)-wide shard of the
+    flattened output: ((first head, heads), (offset, width) of the kept
+    shard, its placements: split over the batch axes); None where the
+    rule does not apply."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.sharding import batch_axes, width_axes
+    plan = get_mesh()
+    if plan is None or "model" not in plan.axis_names:
+        return None
+    names = plan.axis_names
+    ba = [names.index(a) for a in batch_axes(plan)]
+    mesh = cache.device_mesh
+    if not width_axes(plan, h * hd) or any(
+            isinstance(cache.placements[i], Shard) for i in ba):
+        return None
+    g = math.gcd(h, mesh.size(names.index("model")))
+    n, r = batch_rank(mesh, ba)
+    nh = h // g
+    width = h * hd // n
+    opl = [Shard(1) if i in ba else Replicate() for i in range(mesh.ndim)]
+    return (r // (n // g) * nh, nh), (r * width, width), opl
 
 
 # --------------------------------------------------------------------------

@@ -61,9 +61,10 @@ def _split_q(cfg: ModelConfig, q: torch.Tensor):
 
 def _latents(cfg: ModelConfig, p: Params, x, positions):
     """(c_kv [B, T, r], k_rope [B, T, 1, dr]): exactly what is cached."""
-    # on a mesh: the latent whole on every rank of a row shard (as the
-    # residual stream), so the head projections split it cleanly
-    c_kv = rms_norm(rows(dense(p["w_dkv"], x)), p["kv_norm"], cfg.norm_eps)
+    # on a mesh: the latent whole on every rank of a row shard, so the
+    # head projections split it cleanly
+    c_kv = rms_norm(rows(dense(p["w_dkv"], x), stream=False), p["kv_norm"],
+                    cfg.norm_eps)
     k_r = dense(p["w_kr"], x)[:, :, None, :]    # one rope key for all heads
     return c_kv, apply_rope(k_r, positions, cfg.rope_theta)
 

@@ -44,10 +44,13 @@ def _lora_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     # on a mesh both products split over ``model``, as GSPMD splits them:
     # the first over d_model (the low-rank hidden a partial sum, made
     # whole on every rank of a row shard by rows), the second over its
-    # output, gathered back by rows
-    a = {"w": constrain(p["a"]["w"], "model", None)}
+    # output, laid back out as the stream by rows. The first is a plain
+    # product: ``dense`` would take a d_model split over ``model`` for a
+    # row-parallel product into the stream
+    a = constrain(p["a"]["w"], "model", None)
     b = {"w": constrain(p["b"]["w"], None, "model")}
-    h = torch.tanh(rows(dense(a, constrain(x, "data", None, "model"))))
+    h = torch.tanh(rows(constrain(x, "data", None, "model") @ a,
+                        stream=False))
     return rows(dense(b, h))
 
 

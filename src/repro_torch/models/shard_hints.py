@@ -256,16 +256,16 @@ def map_local(fn, mesh, ins, outs, shapes=None):
     that is independent across the sharded dims (a recurrence per row
     and head), where DTensor's own rules would gather.
 
-    Gradients: along a mesh dim that splits the work (an input shard or
-    a partial output there), each rank's gradient of an input it holds
-    whole is its own share, so it goes back as a partial sum; an output
-    whole on such a dim is the same on every rank, so each rank takes
-    1/n of its gradient."""
+    Gradients: along a mesh dim that splits the work (an input shard, or
+    an output shard or partial output there), each rank's gradient of an
+    input it holds whole is its own share, so it goes back as a partial
+    sum; an output whole on such a dim is the same on every rank, so
+    each rank takes 1/n of its gradient."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     split = {i for i in range(mesh.ndim)
              if any(x is not None and isinstance(pl[i], Shard)
                     for x, pl in ins)
-             or any(isinstance(pl[i], Partial) for pl in outs)}
+             or any(isinstance(pl[i], (Partial, Shard)) for pl in outs)}
     args = []
     for x, pl in ins:
         if x is None:
@@ -312,20 +312,115 @@ def keep(x, dims: dict):
             for p in x.placements]
 
 
-def rows(x):
+def rows(x, *, stream: bool = True):
     """The residual stream's layout: dim 0 over the batch axes
-    ("pod", "data") when it divides, every other dim replicated. Without
-    it DTensor may settle a row-parallel product's partial sum by a
+    ("pod", "data") when it divides, every other dim replicated; a batch
+    that does not divide them leaves them idle, and where GSPMD then
+    lays d_model over them (``launch.sharding.width_axes``) the last dim
+    goes there (``project`` then splits the products as GSPMD does).
+    ``stream=False``: a value beside the stream (a low-rank hidden,
+    MLA's latent), whose last dim is not d_model: rows only. Without it
+    DTensor may settle a row-parallel product's partial sum by a
     reduce-scatter over a sequence dim, which later head and flatten
     reshapes cannot follow. A plain tensor is returned as it is."""
     mesh = get_mesh()
     if mesh is None or not is_sharded(x):
         return x
-    from repro_torch.launch.sharding import batch_spec, placements
-    want = placements(batch_spec(mesh, tuple(x.shape)), mesh)
+    from repro_torch.launch.sharding import (batch_spec, placements,
+                                             stream_spec)
+    spec = stream_spec if stream else batch_spec
+    want = placements(spec(mesh, tuple(x.shape)), mesh)
     if tuple(x.placements) != want:
         x = x.redistribute(x.device_mesh, want)
     return _GradAs.apply(x, want)
+
+
+def project(x, w):
+    """``x @ w`` (``w`` [D_in, D_out]). On a mesh whose idle batch axes
+    hold the stream's d_model (``rows``), laid out as GSPMD lays JAX's
+    product out there (``launch.sharding.width_axes``):
+
+    * from the stream (x's last dim over those axes): where w's output
+      a chip is below D_in, w's rows are sliced as x's last dim is (no
+      collective) and the partial sums all-reduced over the axes; else
+      x is gathered and the contraction runs whole;
+    * a row-parallel product (x's last dim and w's rows over ``model``,
+      x's rows not split), whose D_out is the stream's d_model: each
+      rank multiplies the D_out / ``model`` columns that GSPMD gives its
+      chip, the chunk that holds its own shard of the stream, and keeps
+      that shard (a partial sum over ``model``; where the batch axes
+      are wider than ``model``, as on the two-pod mesh, the rest of the
+      chunk is the neighbours' shards, which JAX's chip hands on by a
+      permute).
+
+    Anything else is ``x @ w`` as DTensor lays it out."""
+    plan = get_mesh()
+    if plan is None or not (is_sharded(x) and is_sharded(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.launch.sharding import batch_axes, width_axes
+    mesh, names = x.device_mesh, plan.axis_names
+    last = x.dim() - 1
+
+    def on(t, i, d):
+        p = t.placements[i]
+        return isinstance(p, Shard) and p.dim % t.dim() == d
+
+    ba = [names.index(a) for a in batch_axes(plan)]
+    if "model" in names and on(w, names.index("model"), w.dim() - 2) \
+            and width_axes(plan, w.shape[-1]) \
+            and not any(on(x, i, 0) for i in ba):
+        return _row_product(x, w, names.index("model"), ba)
+    if not (ba and all(on(x, i, last) for i in ba)):
+        return x @ w
+    out = w.shape[-1]
+    for i in range(mesh.ndim):
+        out //= mesh.size(i) if on(w, i, w.dim() - 1) else 1
+    if out < x.shape[-1]:
+        wpl = [Shard(w.dim() - 2) if i in ba else p
+               for i, p in enumerate(w.placements)]
+        if list(w.placements) != wpl:
+            w = w.redistribute(mesh, wpl)
+        y = x @ w
+        return y.redistribute(mesh, [Replicate() if isinstance(p, Partial)
+                                     else p for p in y.placements])
+    x = x.redistribute(mesh, [Replicate() if i in ba else p
+                              for i, p in enumerate(x.placements)])
+    return x @ w
+
+
+def batch_rank(mesh, ba: list) -> tuple[int, int]:
+    """(N, r): the size of the batch axes (mesh dims ``ba``, in order)
+    of DeviceMesh ``mesh`` and this rank's index over them."""
+    coord = mesh.get_coordinate()
+    n, r = 1, 0
+    for i in ba:
+        n, r = n * mesh.size(i), r * mesh.size(i) + coord[i]
+    return n, r
+
+
+def _row_product(x, w, mi: int, ba: list):
+    """``project``'s row-parallel case: the chunk of D_out / M columns
+    that holds this rank's shard (of D_out / N, N the batch axes'
+    size), the shard kept: Shard(last) over the batch axes, Partial
+    over ``model`` (mesh dim ``mi``; every other mesh dim is a batch
+    axis)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, last = x.device_mesh, x.dim() - 1
+    n, r = batch_rank(mesh, ba)
+    d = w.shape[-1]
+    chunk, piece = d // mesh.size(mi), d // n
+    c0 = r * piece // chunk * chunk
+    lo = r * piece - c0
+    xpl = [Shard(last) if i == mi else Replicate() for i in range(mesh.ndim)]
+    wpl = [Shard(w.dim() - 2) if i == mi else Replicate()
+           for i in range(mesh.ndim)]
+    ypl = [Partial() if i == mi else Shard(last) for i in range(mesh.ndim)]
+
+    def local(xl, wl):
+        return ((xl @ wl[..., c0:c0 + chunk])[..., lo:lo + piece],)
+
+    return map_local(local, mesh, [(x, xpl), (w, wpl)], (ypl,))[0]
 
 
 def pin(x):

@@ -305,8 +305,9 @@ def table(jobs: list, recs: dict, before: dict | None = None) -> str:
             cells[0].append(f"{a['dot_flops']:.4g}")
             cells[1].append(port(
                 lambda r: f"{r['dot_flops'] / a['dot_flops']:.3f}"))
-            cells[2].append(f"{p['dot_flops'] / a['walked_dot_flops']:.3f}"
-                            if a.get("walked_dot_flops") else "-")
+            cells[2].append(port(
+                lambda r: f"{r['dot_flops'] / a['walked_dot_flops']:.3f}")
+                if a.get("walked_dot_flops") else "-")
             cells[3].append(f"{a['temp_bytes'] / 1e9:.2f}")
             cells[4].append(port(lambda r: f"{r['temp_bytes'] / 1e9:.2f}"))
             cells[5].append(f"{a['coll_bytes'] / 1e9:.2f}")

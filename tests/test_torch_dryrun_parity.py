@@ -79,6 +79,36 @@ TRAIN_TOL = 0.03
 WALKED = {"rwkv6-1.6b prefill": ("rwkv6-1.6b", (T, BATCH, "prefill")),
           "zamba2-7b prefill": ("zamba2-7b", (T, BATCH, "prefill")),
           "yi-6b decode batch 1": ("yi-6b", (T, 1, "decode"))}
+# a batch of one leaves the batch axes idle; where their size is a
+# multiple of ``model``'s, GSPMD lays d_model over them
+# (``launch.sharding.width_axes``), and a chip's count is JAX's walked
+# whole. (arch, mesh, shape, config overrides): the 256-slot decode of
+# the dry-run's ``long_500k`` cut to size; on 2 x 4 nothing splits; with
+# 2 KV heads on 4 the cache shards its slots and each chip weights the
+# values of a quarter of the heads (``layers._idle_heads``); a prefill
+IDLE_DECODE = (256, 1, "decode")
+IDLE = {
+    **{f"{a} {m}": (a, m, IDLE_DECODE, {})
+       for a in ("yi-6b", "h2o-danube-1.8b", "rwkv6-1.6b")
+       for m in ("4x4", "4x2", "2x2")},
+    "zamba2-7b 4x4": ("zamba2-7b", "4x4", IDLE_DECODE, {}),
+    "h2o-danube-1.8b 2x4": ("h2o-danube-1.8b", "2x4", IDLE_DECODE, {}),
+    "h2o-danube-1.8b 4x4 8q2kv": (
+        "h2o-danube-1.8b", "4x4", IDLE_DECODE,
+        {"num_heads": 8, "num_kv_heads": 2, "head_dim": 32}),
+    "h2o-danube-1.8b pod 2x2x2": ("h2o-danube-1.8b", "2x2x2",
+                                  IDLE_DECODE, {}),
+    "h2o-danube-1.8b 4x4 prefill": ("h2o-danube-1.8b", "4x4",
+                                    (T, 1, "prefill"), {}),
+}
+
+
+def _idle_job(case):
+    arch, mesh, shape, over = IDLE[case]
+    sizes = [int(n) for n in mesh.split("x")]
+    names = ("pod", "data", "model")[-len(sizes):]
+    return dp.job(arch, shape, dict(zip(names, sizes)), reduced=True,
+                  overrides=over)
 
 
 def _gqa_job(heads, kv, kind):
@@ -102,6 +132,7 @@ def _forced(heads, kind) -> float:
 def records():
     jobs = [_gqa_job(h, k, kind) for h, k in HEADS for kind in KINDS]
     jobs += [dp.job(*w, MESH, reduced=True) for w in WALKED.values()]
+    jobs += [_idle_job(c) for c in IDLE]
     return dp.run(jobs, timeout=600)
 
 
@@ -127,6 +158,12 @@ def test_counts_are_jax_with_its_hlo_walked_whole(records, case):
     a, p = _pair(records, dp.job(*WALKED[case], MESH, reduced=True))
     assert p["dot_flops"] == a["walked_dot_flops"]
     assert a["dot_flops"] < a["walked_dot_flops"]
+
+
+@pytest.mark.parametrize("case", list(IDLE))
+def test_batch_one_lays_d_model_over_the_idle_axes_as_jax(records, case):
+    a, p = _pair(records, _idle_job(case))
+    assert p["dot_flops"] == a["walked_dot_flops"]
 
 
 def test_full_width_prefill_within_chip_smokes_margin_of_jax():

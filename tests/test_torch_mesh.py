@@ -22,6 +22,11 @@
   sharded MoE layer (rows over ``data``, or experts over ``model``)
   against JAX's: output, balance loss and gradients. One spawn keeps
   the suite inside its time limit.
+* One ``torchrun`` of four: reduced yi-6b with 6 query heads on
+  ``--mesh 1,4``, whose last rank holds none; and on 2 x 2, where a
+  batch of one leaves ``data`` idle and the residual stream lays d_model
+  over it (``launch.sharding.width_axes``), batch-1 greedy decodes and
+  training steps against one process.
 """
 
 from __future__ import annotations
@@ -78,6 +83,17 @@ DECODE_HEADS = {"4/1": (4, 1, 64), "3/1": (3, 1, 64), "1/1": (1, 1, 64),
 # (layers.per_head_shard), else the group hangs
 EMPTY_RANK_HEADS = (6, 2, 64)
 EMPTY_RANK_ARCH = "yi-6b-6q2kv"
+# batch-1 decode on the 2 x 2 mesh of those four ranks, where the batch
+# leaves ``data`` idle: (arch, KV heads or None). h2o-danube's ring cache
+# shards its 4 KV heads over ``model``; with 1 KV head it shards its slots
+# and each rank weights the values of half the heads
+# (``layers._idle_heads``); rwkv6's token shift and state, zamba2's
+# mamba2 layers and shared block
+BATCH_ONE = {"h2o-danube-1.8b": ("h2o-danube-1.8b", None),
+             "h2o-danube-1.8b-kv1": ("h2o-danube-1.8b", 1),
+             "rwkv6-1.6b": ("rwkv6-1.6b", None),
+             "zamba2-7b": ("zamba2-7b", None)}
+BATCH_ONE_STEPS = 6
 
 
 @pytest.fixture
@@ -251,14 +267,47 @@ def test_two_process_gloo_mesh():
         assert m["grad_rel_err"] <= 1e-5, (case, m)
 
 
-def test_four_process_gloo_mesh_leaves_a_rank_without_heads():
+@pytest.fixture(scope="module")
+def four_ranks() -> dict:
+    """This file's ``__main__`` on four gloo ranks, run once."""
+    return _torchrun(4, 300)
+
+
+def test_four_process_gloo_mesh_leaves_a_rank_without_heads(four_ranks):
     """6 query heads on ``--mesh 1,4``: the rank without heads takes part
     in the backward's collectives (a hang otherwise), and the losses,
     prefill and decode agree with one process."""
-    res = _torchrun(4, 300)
+    res = four_ranks
     assert set(res["train"][EMPTY_RANK_ARCH]) == {"one", "1,4"}, res
-    _check_train(res)
+    _check_train({"train": {EMPTY_RANK_ARCH:
+                            res["train"][EMPTY_RANK_ARCH]}})
     _check_decode(res["decode"])
+
+
+def test_batch_one_on_an_idle_data_axis_is_one_process(four_ranks):
+    """A batch of one on the 2 x 2 mesh leaves ``data`` idle, and the
+    residual stream lays d_model over it, as GSPMD lays JAX's out: the
+    greedy tokens of four archs (h2o-danube also with one KV head, its
+    slots sharded) and three training steps of four are one process's,
+    the logits and losses within fp32 reordering."""
+    res = four_ranks
+    _check_batch_one(res["batch_one"])
+    one = {k: v for k, v in res["train"].items() if k.endswith("batch 1")}
+    assert len(one) == len(TRAIN_ARCHS), res["train"]
+    assert all(set(v) == {"one", "2,2"} for v in one.values()), one
+    _check_train({"train": one})
+
+
+def _check_batch_one(runs: dict) -> None:
+    assert set(runs) == set(BATCH_ONE), runs
+    for name, r in runs.items():
+        assert r["stream"] == [None, None, "data"], (name, r)
+        one, mesh = r["tokens"]
+        assert mesh == one, (name, r)
+        # fp32 logits: the partial sums over ``data`` and ``model`` add
+        # the same products in another order (measured: 1.7e-6 of the
+        # largest logit)
+        assert r["max_abs_err"] <= 1e-5 * max(r["scale"], 1.0), (name, r)
 
 
 # ------------------------------------------------------------ the worker
@@ -373,12 +422,12 @@ def _worker() -> None:
     dist.destroy_process_group()
 
 
-def _losses(arch, extra, groups=0, smoke=True) -> list:
+def _losses(arch, extra, groups=0, smoke=True, batch=4) -> list:
     """Three training steps' losses of ``arch`` (reduced with ``smoke``)
     through ``launch.train``: on one process, or with ``extra`` on a
     mesh."""
     args = launch.parse_args(["--device", "cpu", "--arch", arch,
-                              "--steps", "3", "--batch", "4", "--seq",
+                              "--steps", "3", "--batch", str(batch), "--seq",
                               "32", *(["--smoke"] if smoke else []),
                               *extra])
     cfg, params, opt, stepf = launch.setup(args)
@@ -415,7 +464,10 @@ def _empty_rank_worker() -> None:
     """Rank r of a four-process gloo group (``torchrun``): reduced yi-6b
     with 6 query heads on 2 KV heads, which ``--mesh 1,4`` splits 2, 2,
     2 and 0; three training steps against one process, and a prefill +
-    decode over a slot-sharded cache against one process."""
+    decode over a slot-sharded cache against one process. Then, on the
+    2 x 2 mesh, batch-1 greedy decodes (``BATCH_ONE``) and three batch-1
+    training steps of reduced deepseek-v2-lite, rwkv6, zamba2 and
+    h2o-danube, each against one process."""
     from repro_torch.configs import get_config
 
     dist.init_process_group("gloo")
@@ -426,6 +478,14 @@ def _empty_rank_worker() -> None:
                            smoke=False)}}}
     out["decode"] = _slot_sharded_decode(get_config("yi-6b").reduced(),
                                          *EMPTY_RANK_HEADS, model=4)
+    out["batch_one"] = {name: _batch_one_decode(arch, kv)
+                        for name, (arch, kv) in BATCH_ONE.items()}
+    # training at batch 1 on 2 x 2: the split products' gradients
+    # (``shard_hints._row_product``'s through ``map_local``)
+    for arch in TRAIN_ARCHS[1:] + ("h2o-danube-1.8b",):
+        out["train"][f"{arch} batch 1"] = {
+            "one": _losses(arch, [], batch=1),
+            "2,2": _losses(arch, ["--mesh", "2,2"], batch=1)}
     if dist.get_rank() == 0:
         print(json.dumps(out), flush=True)
     dist.destroy_process_group()
@@ -485,6 +545,63 @@ def _slot_sharded_decode(rcfg, heads: int, kv: int, hd: int,
         cfg, mesh)), True)
     return {"max_abs_err": float((got - want).abs().max()),
             "scale": float(want.abs().max()), "layout": layout}
+
+
+def _batch_one_decode(arch: str, kv: int | None) -> dict:
+    """Greedy generation of one row (a 12-token prompt, then
+    ``BATCH_ONE_STEPS`` tokens, each the argmax of the last logits) of
+    reduced ``arch`` (its KV heads replaced by ``kv``) on the 2 x 2 mesh,
+    where the batch leaves ``data`` idle and the residual stream lays
+    d_model over it (``shard_hints.rows``, ``project``), against one
+    process: both runs' tokens, the largest logit difference, and the
+    stream's spec."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import device_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.shard_hints import gather
+    from repro_torch.serving.generate import graft
+    from repro_torch.tree import tree_map
+
+    mesh = device_mesh(Mesh({"data": 2, "model": 2}), "gloo")
+    cfg = get_config(arch).reduced()
+    if kv:
+        cfg = dataclasses.replace(cfg, num_kv_heads=kv)
+    params = T.init_params(cfg, torch.Generator().manual_seed(9))
+    prompt = torch.from_numpy(np.random.default_rng(4).integers(
+        1, cfg.vocab_size, (1, 12)).astype(np.int32))
+    n = prompt.shape[1] + BATCH_ONE_STEPS
+
+    def run(p, on_mesh):
+        def put(t):
+            return sh.distribute(t, sh.NamedSharding(
+                mesh, sh.batch_spec(mesh, tuple(t.shape)))) if on_mesh \
+                else t
+        with torch.no_grad(), (use_mesh(mesh) if on_mesh
+                               else contextlib.nullcontext()):
+            logits, pc = T.prefill(cfg, p, {"tokens": put(prompt)})
+            cache = graft(T.make_cache(cfg, 1, n, device="cpu"),
+                          tree_map(gather, pc))
+            if on_mesh:
+                cache = sh.distribute_tree(cache, sh.cache_shardings(
+                    cfg, mesh, 1, n))
+            outs, toks = [gather(logits)], []
+            for i in range(BATCH_ONE_STEPS):
+                toks.append(int(outs[-1][0].argmax()))
+                logits, cache = T.decode_step(
+                    cfg, p, put(torch.tensor([toks[-1]], dtype=torch.int32)),
+                    cache, prompt.shape[1] + i)
+                outs.append(gather(logits))
+        return torch.stack(outs), toks
+
+    want, want_toks = run(params, False)
+    got, got_toks = run(sh.distribute_tree(params, sh.params_shardings(
+        cfg, mesh)), True)
+    return {"tokens": [want_toks, got_toks],
+            "max_abs_err": float((got - want).abs().max()),
+            "scale": float(want.abs().max()),
+            "stream": list(sh.stream_spec(mesh, (1, 1, cfg.d_model)))}
 
 
 def _sharded_moe() -> dict:

@@ -159,6 +159,35 @@ def test_batch_and_logits_specs_are_jax(arch, mesh):
         assert sh.logits_sharding(get_config(arch), m, b).spec == want
 
 
+# the meshes whose idle batch axes GSPMD lays d_model over, and those it
+# does not (JAX's HLO per chip: ``launch.sharding.width_axes``); d_model
+# 2560 (h2o-danube-1.8b)
+WIDTH_AXES = {(2, 2): ("data",), (4, 2): ("data",), (4, 4): ("data",),
+              (8, 4): ("data",), (16, 16): ("data",),
+              (2, 16, 16): ("pod", "data"), (2, 4): (), (3, 4): (),
+              (4, 1): (), (8, 1): (), (1, 1): ()}
+
+
+@pytest.mark.parametrize("sizes", list(WIDTH_AXES), ids=lambda s: "x".join(
+    map(str, s)))
+def test_stream_lays_d_model_over_idle_batch_axes(sizes):
+    m = FakeMesh(dict(zip(("pod", "data", "model")[-len(sizes):], sizes)))
+    ax = WIDTH_AXES[sizes]
+    assert sh.width_axes(m, 2560) == ax
+    for shape in ((1, 1, 2560), (1, 2560)):
+        want = sh.batch_spec(m, shape)      # rows, or nothing, split
+        if ax:
+            want = want[:-1] + (ax if len(ax) > 1 else ax[0],)
+        assert sh.stream_spec(m, shape) == want
+    # a batch the axes divide keeps its rows split; 2560 / 3 does not
+    # divide
+    n = 1
+    for a in ("pod", "data"):
+        n *= m.shape.get(a, 1)
+    assert sh.stream_spec(m, (n, 1, 2560)) == sh.batch_spec(m, (n, 1, 2560))
+    assert sh.width_axes(m, 2561) == ()
+
+
 def _dtype(x) -> str:
     return str(x.dtype).replace("torch.", "")
 
