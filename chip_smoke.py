@@ -109,9 +109,11 @@ toolkit. In order, it
    step, rwkv6's and h2o-danube's decode steps), each beside the median
    this run measured (``roofline``), and runs the 256-rank fake-mesh
    dry-run of yi-6b and rwkv6-1.6b at decode_32k, of yi-6b at
-   prefill_32k and of h2o-danube-1.8b at long_500k (batch 1: d_model
-   laid over the idle ``data`` axis) in subprocesses, the last two held
-   to JAX's dot FLOPs a chip (``dryrun``);
+   prefill_32k, of h2o-danube-1.8b at long_500k (batch 1: d_model
+   laid over the idle ``data`` axis) and of qwen3-moe-235b-a22b at
+   train_4k in subprocesses, yi-6b prefill_32k and h2o-danube long_500k
+   held to JAX's dot FLOPs a chip, yi-6b prefill_32k and qwen3-moe
+   train_4k to JAX's temporaries a chip (``dryrun``);
 12. prints one ``{"kernels": [...]}`` line and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
@@ -223,7 +225,8 @@ ROOFLINE_PATHS = {"yi-6b serve window prefill": ("yi-6b", "prefill", 8, 48),
 HAND_BOUND_MS = {"yi-6b decode step": 3.7, "yi-6b train step": 38.0,
                  "rwkv6-1.6b decode step": 0.93,
                  "h2o-danube-1.8b decode step": 1.1}
-DRYRUN_COMBOS = (("yi-6b", "decode_32k"), ("rwkv6-1.6b", "decode_32k"),
+DRYRUN_COMBOS = (("qwen3-moe-235b-a22b", "train_4k"),
+                 ("yi-6b", "decode_32k"), ("rwkv6-1.6b", "decode_32k"),
                  ("yi-6b", "prefill_32k"), ("h2o-danube-1.8b", "long_500k"))
 # JAX's dot FLOPs a chip on the single-pod mesh, from its partitioned HLO
 # (unrolled lowerings at 2 and 4 layers extrapolated to the full depth,
@@ -236,6 +239,13 @@ DRYRUN_COMBOS = (("yi-6b", "decode_32k"), ("rwkv6-1.6b", "decode_32k"),
 JAX_DOT_FLOPS = {("yi-6b", "prefill_32k"): 115723664359424.0,
                  ("h2o-danube-1.8b", "long_500k"): 47088640.0}
 DRYRUN_FLOPS_MARGIN = 1.10
+# JAX's temporaries a chip on the single-pod mesh, the compiled step's
+# memory_analysis() (full depth; same tool and run as JAX_DOT_FLOPS): the
+# port's temp bytes of a combo here may exceed them by DRYRUN_TEMP_MARGIN
+# at most
+JAX_TEMP_BYTES = {("yi-6b", "prefill_32k"): 4303365488,
+                  ("qwen3-moe-235b-a22b", "train_4k"): 72509044256}
+DRYRUN_TEMP_MARGIN = 1.05
 
 
 def log(obj) -> None:
@@ -2865,8 +2875,9 @@ def start_dryrun() -> list:
 def dryrun_phase(started: list) -> dict:
     """Wait for ``start_dryrun``'s processes: each exits 0, prints
     ``OK`` and writes its record; a combo of ``JAX_DOT_FLOPS`` counts at
-    most ``DRYRUN_FLOPS_MARGIN`` times JAX's dot FLOPs a chip (its temp
-    bytes logged beside)."""
+    most ``DRYRUN_FLOPS_MARGIN`` times JAX's dot FLOPs a chip, and one
+    of ``JAX_TEMP_BYTES`` holds at most ``DRYRUN_TEMP_MARGIN`` times
+    JAX's temporaries a chip (each combo's temp bytes logged)."""
     try:
         for combo, p, _ in started:
             stdout, stderr = p.communicate(timeout=600)
@@ -2884,6 +2895,11 @@ def dryrun_phase(started: list) -> dict:
             got = rec["roofline"]["flops_per_chip"]
             rec["jax_dot_flops"], rec["port_over_jax"] = want, got / want
             assert got <= DRYRUN_FLOPS_MARGIN * want, (combo, got, want)
+        want = JAX_TEMP_BYTES.get(combo)
+        if want is not None:
+            got = rec["memory"]["temp_size_in_bytes"]
+            rec["jax_temp_bytes"], rec["temp_over_jax"] = want, got / want
+            assert got <= DRYRUN_TEMP_MARGIN * want, (combo, got, want)
         log({"phase": "dryrun", "temp_bytes":
              rec["memory"]["temp_size_in_bytes"], **rec})
         out[" ".join(combo)] = rec

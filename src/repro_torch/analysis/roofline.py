@@ -221,12 +221,18 @@ class OpTally(TorchDispatchMode):
             kind = "bf16" if operands and all(self._widens(t)
                                               for t in operands) else "fp32"
             self.dot_flops[kind] += float(flops) * times
-        if _is_view(func) or ns == "prim" or name.startswith("empty") \
-                or name == "_unsafe_view":
+        if _is_view(func) or ns == "prim" or name == "_unsafe_view" or (
+                outs and all(t.device.type == "meta" for t in outs)):
+            return out          # no data: a view, or shapes only
+        in_storages = {id(t.untyped_storage()) for t in ins}
+        if name.startswith("empty") or name == "new_empty":
+            # an uninitialised buffer (a stacked cache, an output filled
+            # chunk by chunk) moves no bytes, but it is held
+            for t in outs:
+                self._track(t, in_storages)
             return out
         self.bytes += sum(t.numel() * t.element_size()
                           for t in ins + outs) * times
-        in_storages = {id(t.untyped_storage()) for t in ins}
         for t in outs:
             self._track(t, in_storages)
         # a widened operand: a 16-bit tensor cast to fp32, or one moved

@@ -78,7 +78,8 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, -1, keepdim=True) + eps)
-    return (x * w.float()).to(dt)
+    x = x * w.float()       # at most two fp32 copies of x held at once
+    return x.to(dt)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -28,7 +28,7 @@ from torch.distributed.tensor import Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.shard_hints import (constrain, is_sharded, keep,
-                                            map_local, pin, stepwise)
+                                            local, map_local, pin, stepwise)
 from repro_torch.models.layers import (Params, dense, dense_params, normal,
                                        rms_norm)
 
@@ -81,6 +81,26 @@ def mamba2_state(cfg: ModelConfig, batch: int, layers: int | None = None,
             "conv_bc": zeros(CONV_W - 1, 2 * n)}
 
 
+def _in_proj(w, x, d_inner: int):
+    """(z, xi), the two halves of ``x @ w`` (``w_zx``), each split over
+    ``model`` on a mesh where w's columns are. The halves of a product
+    split over ``model`` lie on different ranks (z on the first half of
+    them), and DTensor gathers the whole product to slice it; GSPMD
+    moves the pieces by collective-permutes instead. The port moves the
+    smaller operand: where a rank's shard of w is smaller than its
+    share of the product (a prefill or a train step), w's halves are
+    taken first, each laid out split over ``model``, and multiplied
+    apart; else (a decode step's few rows) the product is sliced."""
+    xs, ws = local(x), local(w)
+    if is_sharded(w) and ws.numel() < xs.numel() // xs.shape[-1] \
+            * ws.shape[-1]:
+        return tuple(pin(dense({"w": constrain(w[..., lo:lo + d_inner],
+                                               None, "model")}, x))
+                     for lo in (0, d_inner))
+    zx = pin(dense({"w": w}, x))
+    return zx[..., :d_inner], zx[..., d_inner:]
+
+
 def _conv(w, b, xbc, conv_state):
     """Depthwise causal conv of width 4. xbc: [B, T, C]; conv_state:
     [B, 3, C] fp32. Returns (silu(conv + b), the new state in fp32)."""
@@ -114,8 +134,7 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     d_inner, h, n = dims(cfg)
     # pin: on a mesh, the gradients through the conv's slices along the
     # sequence come back laid out as these projections are
-    zx = pin(dense(p["w_zx"], x))
-    z, xi = zx[..., :d_inner], zx[..., d_inner:]
+    z, xi = _in_proj(p["w_zx"]["w"], x, d_inner)
     bc = pin(dense(p["w_bc"], x))
     dt = pin(dense(p["w_dt"], x))
     if state is None:
@@ -123,16 +142,21 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         state = {"ssm": torch.zeros((b, h, HEAD_P, n), **f32),
                  "conv_x": torch.zeros((b, CONV_W - 1, d_inner), **f32),
                  "conv_bc": torch.zeros((b, CONV_W - 1, 2 * n), **f32)}
-    xi, conv_x = _conv(p["conv_x_w"], p["conv_x_b"], xi, state["conv_x"])
+    # JAX's hint on xi, which GSPMD carries back through the conv: the
+    # conv is per channel, so on a mesh it runs on xi's d_inner split
+    # over ``model``, with its weights and state split to match.
+    # d_inner is flattened P-major (index = p * h + head): the
+    # column-parallel shards of w_zx line up with the P-sharding of the
+    # recurrence (JAX's hints, kept where JAX has them)
+    xi = constrain(xi, "data", None, "model")
+    xi, conv_x = _conv(constrain(p["conv_x_w"], None, "model"),
+                       constrain(p["conv_x_b"], "model"), xi,
+                       constrain(state["conv_x"], "data", None, "model"))
     bc, conv_bc = _conv(p["conv_bc_w"], p["conv_bc_b"], bc, state["conv_bc"])
     bb, cc = bc[..., :n].float(), bc[..., n:].float()
 
     dt = F.softplus(dt.float() + p["dt_bias"])                # [B, T, H]
     decay = torch.exp(dt * -torch.exp(p["a_log"]))            # [B, T, H]
-    # d_inner is flattened P-major (index = p * h + head): on the
-    # production mesh the column-parallel shards of w_zx line up with the
-    # P-sharding of the recurrence (JAX's hints, kept where JAX has them)
-    xi = constrain(xi, "data", None, "model")
     x_h = xi.float().reshape(b, t, HEAD_P, h).transpose(2, 3)  # [B,T,H,P]
     x_h = constrain(x_h, "data", None, None, "model")
     dtx = dt[..., None] * x_h                                 # [B,T,H,P]

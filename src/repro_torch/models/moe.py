@@ -32,10 +32,12 @@ any G; under capacity (training) G changes which pairs drop, as in JAX.
 On a mesh whose tokens are DTensors (``launch.specs``, ``train --mesh``)
 each ``data`` rank's rows are its group, and the experts are sharded
 over ``model`` (expert parallelism): each rank routes its rows, runs its
-own experts on the pairs routed to them, and the ranks of a group sum
-their outputs. Fake tensors (the dry-run) hold no routing, so there each
-expert takes an even share of the pairs: for dropless serving that
-total is exact.
+own experts on the pairs routed to them into a buffer of those pairs
+only (``_experts_mine``: no [tokens, k, D] buffer of mostly zeros; one
+card keeps the [m * k, D] buffer, whose combine takes fewer launches a
+layer), and the ranks of a group sum their outputs. Fake tensors (the
+dry-run) hold no routing, so there each expert takes an even share of
+the pairs: for dropless serving that total is exact.
 """
 
 from __future__ import annotations
@@ -89,8 +91,17 @@ def route(cfg: ModelConfig, p: Params, xf: torch.Tensor):
     top_p, top_e = torch.topk(probs, k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True)
     me = probs.mean(0)
-    ce = F.one_hot(top_e, e).float().sum(1).mean(0) / k
-    return top_e, top_p, e * torch.sum(me * ce)
+    return top_e, top_p, e * torch.sum(me * _fractions(top_e, e))
+
+
+def _fractions(top_e: torch.Tensor, e: int) -> torch.Tensor:
+    """[E] fp32: each expert's share of the (token, slot) pairs, JAX's
+    mean over tokens of the one-hot ids summed over the slots, made as
+    an [m, E] 0/1 table (top-k picks distinct experts, so a token's
+    slots set distinct columns) without the [m, k, E] one-hot."""
+    m, k = top_e.shape
+    hit = torch.zeros((m, e), device=top_e.device).scatter_(1, top_e, 1.0)
+    return hit.mean(0) / k
 
 
 def keep_mask(top_e: torch.Tensor, e: int, cap: int) -> torch.Tensor:
@@ -117,9 +128,8 @@ def _experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
              dropless: bool) -> torch.Tensor:
     """Each kept (token, slot) pair's expert output, [m, k, D] (zero
     where dropped): the pairs sorted by expert, each expert's swiglu on
-    its own rows. ``top_e`` indexes ``p``'s experts (a shard of the
-    config's). Fake tensors hold no routing: there each expert takes an
-    even share of the pairs, at most its capacity."""
+    its own rows. Fake tensors hold no routing: there each expert takes
+    an even share of the pairs, at most its capacity."""
     m, k = top_e.shape
     e = p["w_gate"].shape[0]
     # one view per expert by unbind (indexing a leaf per expert would give
@@ -141,6 +151,60 @@ def _experts(cfg: ModelConfig, p: Params, xf: torch.Tensor,
             out[sel] = (F.silu(xe @ wg[ex]) * (xe @ wu[ex])) @ wd[ex]
             start += n
     return out.reshape(m, k, -1)
+
+
+def _experts_mine(cfg: ModelConfig, p: Params, xf: torch.Tensor,
+                  top_e: torch.Tensor, w: torch.Tensor, keep: torch.Tensor,
+                  capacity_factor, dropless: bool) -> torch.Tensor:
+    """A rank's kept (token, slot) pairs' expert outputs weighted by
+    ``w`` [m, k] (the activations' dtype) and summed per token in slot
+    order: y [m, D], 0 for a token with none. ``top_e`` indexes ``p``'s
+    experts (the rank's shard of the config's). Each expert's swiglu
+    runs on its own pairs' rows; the outputs go into one buffer of the
+    kept pairs only, slot-major, so that slot j's pairs are one block,
+    added into y at its tokens (each at most once a slot: no order to
+    decide): ``_combine``'s sums. Fake tensors hold no routing:
+    there each expert takes an even share of the pairs, at most its
+    capacity, spread evenly over the slots."""
+    m, k = top_e.shape
+    e = p["w_gate"].shape[0]
+    # one view per expert by unbind (indexing a leaf per expert would give
+    # each expert's backward a zeroed gradient of the whole stack)
+    wg, wu, wd = (p[n].unbind(0) for n in ("w_gate", "w_up", "w_down"))
+    flat = torch.where(keep, top_e, e).reshape(-1)      # dropped -> e
+    # the kept pairs slot-major (pair index = token * k + slot), and each
+    # one's place among them; then by expert, for the products
+    slot_major = torch.where(keep.t(), 0, 1).reshape(-1)
+    by_slot = torch.argsort(slot_major, stable=True)
+    pair = by_slot % m * k + by_slot // m
+    place = torch.empty_like(pair)
+    place[pair] = torch.arange(m * k, device=pair.device)
+    order = torch.argsort(flat, stable=True)
+    if abstract(flat):
+        counts = [_share(cfg, m, capacity_factor, dropless)] * e
+        kept = sum(counts)
+        per_slot = [kept // k + (j < kept % k) for j in range(k)]
+    else:
+        both = torch.cat([torch.bincount(flat, minlength=e + 1)[:e],
+                          keep.sum(0)]).tolist()      # one host sync
+        counts, per_slot = both[:e], both[e:]
+    out = xf.new_empty((sum(counts), xf.shape[-1]))
+    start = 0
+    for ex, n in enumerate(counts):
+        if n:
+            sel = order[start:start + n]
+            xe = xf[sel // k]
+            out[place[sel]] = (F.silu(xe @ wg[ex]) * (xe @ wu[ex])) @ wd[ex]
+            start += n
+    y = xf.new_zeros((m, xf.shape[-1]))
+    wp = w.reshape(-1)
+    start = 0
+    for j, n in enumerate(per_slot):                      # slot order
+        if n:
+            pj = pair[start:start + n]
+            y.index_add_(0, pj // k, out[start:start + n] * wp[pj, None])
+            start += n
+    return y
 
 
 def _keep(cfg: ModelConfig, top_e: torch.Tensor, groups: int,
@@ -198,8 +262,9 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x, capacity_factor,
     """``moe_forward``'s routed experts on a mesh: x [B, T, D] a DTensor.
     Each rank routes its rows (its dispatch group; the router is
     replicated), runs the experts of its shard of the expert dim on the
-    pairs routed to them and gives zeros for the others; the output is
-    a partial sum over the mesh dims that shard the experts. The
+    pairs routed to them and sums their weighted outputs per token (the
+    other pairs add nothing); the output is a partial sum over the mesh
+    dims that shard the experts. The
     balance loss is JAX's, over all tokens: each group's mean
     probabilities and routed fractions are averaged over the groups (a
     partial sum of each group's share over the row-sharding dims)."""
@@ -229,12 +294,12 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x, capacity_factor,
         keep_ = _keep(cfg, top_e, 1, capacity_factor, dropless)
         mine = (top_e >= e0) & (top_e < e0 + ne)
         lp = {"w_gate": wg, "w_up": wu, "w_down": wd}
-        ye = _experts(cfg, lp, xf, torch.where(mine, top_e - e0, 0),
-                      keep_ & mine, capacity_factor, dropless)
+        y = _experts_mine(cfg, lp, xf, torch.where(mine, top_e - e0, 0),
+                          (top_p * keep_).to(xf.dtype), keep_ & mine,
+                          capacity_factor, dropless)
         probs = torch.softmax(xf.float() @ rw.float(), -1)
-        ce = F.one_hot(top_e, e).float().sum(1).mean(0) / k
-        return (_combine(ye, top_p, keep_), probs.mean(0) / groups,
-                ce / groups)
+        ce = _fractions(top_e, e)
+        return y, probs.mean(0) / groups, ce / groups
 
     y, me, ce = map_local(
         local, mesh, [(x, xpl), (p["router"]["w"], [Replicate()] * mesh.ndim),

@@ -85,12 +85,17 @@ def rwkv6_params(gen: torch.Generator, cfg: ModelConfig, dtype,
     }
 
 
-def _ddlerp(p: Params, x, x_prev) -> dict:
-    """Data-dependent token-shift mixing -> dict of mixed inputs."""
+def _ddlerp(p: Params, x, x_prev):
+    """Data-dependent token-shift mixing -> ``mix(name)``, the mixed
+    input of one of ``MIX_NAMES``, made when it is asked for: each is
+    used by one product, so one is held at a time."""
     xx = x_prev - x
     base = x + xx * p["maa_x"]
-    return {n: x + xx * (p["maa"][n] + _lora_apply(p["maa_lora"][n], base))
-            for n in p["maa"]}
+
+    def mix(n):
+        return x + xx * (p["maa"][n] + _lora_apply(p["maa_lora"][n], base))
+
+    return mix
 
 
 def _heads(cfg: ModelConfig, t: torch.Tensor) -> torch.Tensor:
@@ -133,14 +138,18 @@ def time_mix(cfg: ModelConfig, p: Params, x, s0, x_prev0,
     b, t, d = x.shape
     m = cfg.rwkv_head_dim
     h = d // m
-    mixed = _ddlerp(p, x, _shifted(x, x_prev0))
-    r = _heads(cfg, dense(p["wr"], mixed["r"]))
-    k = _heads(cfg, dense(p["wk"], mixed["k"]))
-    v = _heads(cfg, dense(p["wv"], mixed["v"]))
-    g = F.silu(dense(p["wg"], mixed["g"]))
+    mix = _ddlerp(p, x, _shifted(x, x_prev0))      # in MIX_NAMES order
     decay = (p["decay_base"].float()
-             + _lora_apply(p["decay_lora"], mixed["w"]).float())
-    w = torch.exp(-torch.exp(decay)).reshape(b, t, h, m)
+             + _lora_apply(p["decay_lora"], mix("w")).float())
+    if differentiable:
+        w = torch.exp(-torch.exp(decay))
+    else:       # the same ops in one buffer (JAX fuses the chain)
+        w = decay.exp_().neg_().exp_()
+    w = w.reshape(b, t, h, m)
+    k = _heads(cfg, dense(p["wk"], mix("k")))
+    v = _heads(cfg, dense(p["wv"], mix("v")))
+    r = _heads(cfg, dense(p["wr"], mix("r")))
+    g = F.silu(dense(p["wg"], mix("g")))
     u = p["bonus_u"].float().reshape(h, m)
     if differentiable:
         scan = rwkv6_scan_ref

@@ -17,10 +17,11 @@ keys with 4 heads on 16 devices), or split it again unevenly (query
 heads), and ``merge_heads`` undoes that split; ``map_local`` runs work
 that is independent across sharded dims (attention, recurrences) on each
 rank's shards; ``rows`` and ``pin`` fix a value's (and its gradient's)
-layout; ``argmax``, ``take`` and ``write_slot`` work along a sharded
-last or slot dim; ``cache_like`` lays a state the model makes out as a
-cache; ``gather`` brings a DTensor back to one plain tensor where a
-kernel or a host step needs the whole of it.
+layout; ``argmax``, ``take``, ``logsumexp`` and ``write_slot`` work
+along a sharded last or slot dim; ``cache_like`` lays a state the model
+makes out as a cache, and ``put_layer`` writes a layer's entry into a
+stacked one; ``gather`` brings a DTensor back to one plain tensor where
+a kernel or a host step needs the whole of it.
 
 The ambient mesh is set by ``use_mesh`` (JAX: ``use_abstract_mesh`` /
 ``jax.set_mesh``) for the thread that enters it, as JAX's mesh context
@@ -218,6 +219,37 @@ def write_slot(cache, slot: int, value) -> None:
         cache.to_local()[:, slot - lo] = value.to_local()
 
 
+def put_layer(buf, i: int, n: int, t):
+    """``buf[i] = t`` in place, ``buf`` the ``[n, *t.shape]`` stack of
+    ``n`` layers' tensors that ``torch.stack`` would give: allocated
+    uninitialised at the first call (``buf`` None) and laid out as
+    ``t`` is, a DTensor's shards one dim down. Each layer's tensor is
+    copied in as it is made, so the layers are never held beside their
+    stack (JAX's layer scan writes its stacked cache once). Returns
+    ``buf``."""
+    if not is_sharded(t):
+        if buf is None:
+            buf = t.new_empty((n, *t.shape))
+        buf[i].copy_(t)
+        return buf
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = t.device_mesh
+    if buf is None:
+        pl = [Shard(p.dim % t.dim() + 1) if isinstance(p, Shard) else p
+              for p in t.placements]
+        lt = t.to_local()
+        shape = torch.Size((n, *t.shape))
+        buf = DTensor.from_local(lt.new_empty((n, *lt.shape)), mesh, pl,
+                                 run_check=False, shape=shape,
+                                 stride=_contiguous_stride(shape))
+    want = [Shard(p.dim - 1) if isinstance(p, Shard) else p
+            for p in buf.placements]
+    if list(t.placements) != want:
+        t = t.redistribute(mesh, want)
+    buf.to_local()[i].copy_(t.to_local())
+    return buf
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """Identity whose backward hands on a contiguous gradient: a shard's
     gradient from an einsum's backward may be a transposed view, which
@@ -336,7 +368,12 @@ def rows(x, *, stream: bool = True):
 
 
 def project(x, w):
-    """``x @ w`` (``w`` [D_in, D_out]). On a mesh whose idle batch axes
+    """``x @ w`` (``w`` [D_in, D_out]). Where x's rows and w's D_in are
+    split over the same batch axis (an FSDP weight), w is gathered over
+    it first, as ZeRO-3 gathers a weight before its use: DTensor's own
+    choice may gather x's rows instead and contract the split, which for
+    a large output (the loss head's vocabulary) holds every row's output
+    on every chip. On a mesh whose idle batch axes
     hold the stream's d_model (``rows``), laid out as GSPMD lays JAX's
     product out there (``launch.sharding.width_axes``):
 
@@ -367,6 +404,10 @@ def project(x, w):
         return isinstance(p, Shard) and p.dim % t.dim() == d
 
     ba = [names.index(a) for a in batch_axes(plan)]
+    fsdp = [i for i in ba if on(w, i, w.dim() - 2) and on(x, i, 0)]
+    if fsdp:
+        w = w.redistribute(mesh, [Replicate() if i in fsdp else p
+                                  for i, p in enumerate(w.placements)])
     if "model" in names and on(w, names.index("model"), w.dim() - 2) \
             and width_axes(plan, w.shape[-1]) \
             and not any(on(x, i, 0) for i in ba):
@@ -450,10 +491,13 @@ class _GradAs(torch.autograd.Function):
 
 
 def _last_sharded(x) -> bool:
+    """Whether a mesh axis of more than one rank splits ``x``'s last dim
+    (on an axis of one the plain op on the DTensor is the same work, and
+    keeps the plain path's arithmetic)."""
     from torch.distributed.tensor import Shard
     return is_sharded(x) and any(
         isinstance(p, Shard) and p.dim % x.dim() == x.dim() - 1
-        for p in x.placements)
+        and x.device_mesh.size(i) > 1 for i, p in enumerate(x.placements))
 
 
 def _over_last(x, fn):
@@ -491,6 +535,24 @@ def argmax(x):
         cand = torch.where(lmax == gmax, lidx + off,
                            torch.full_like(lidx, x.shape[-1]))
         return reduce(cand, "min")
+
+    return _over_last(x, fn)
+
+
+def logsumexp(x):
+    """``torch.logsumexp(x, -1)``. On a DTensor sharded along its last
+    dim each rank reduces its shard: the maximum all-reduced (held
+    constant: the result does not depend on it), then the sum of its
+    shard's exponentials all-reduced, so nothing of the last dim is
+    gathered."""
+    if not _last_sharded(x):
+        return torch.logsumexp(x, -1)
+
+    def fn(x, off, reduce):
+        lx = x.to_local()
+        m = reduce(lx.detach().amax(-1), "max")
+        s = reduce(torch.exp(lx - m.to_local()[..., None]).sum(-1), "sum")
+        return torch.log(s) + m
 
     return _over_last(x, fn)
 
@@ -590,20 +652,23 @@ def _charge_backward(outs, ins, times: float) -> None:
         node.register_hook(post)
 
 
-def cache_like(tree):
-    """A recurrent state the model makes itself (a prefill's zeroed
-    RWKV6 or mamba2 state, ``[L, B, ...]`` leaves) laid out on the
+def cache_like(make, device):
+    """The zeroed recurrent state ``make(device)`` that a prefill makes
+    itself (RWKV6's or mamba2's, ``[L, B, ...]`` leaves) laid out on the
     ambient mesh as a cache of that kind is (``launch.sharding
-    .cache_spec``), so that each rank updates its own shard in place;
-    as it is outside a running mesh."""
+    .cache_spec``), each rank allocating only its own shard, which it
+    then updates in place; ``make(device)`` as it is outside a running
+    mesh."""
     mesh = get_mesh()
     if mesh is None or mesh.device_mesh is None:
-        return tree
-    from repro_torch.launch.sharding import (NamedSharding, cache_spec,
-                                             distribute)
+        return make(device)
+    from torch.distributed.tensor import zeros
+    from repro_torch.launch.sharding import cache_spec, placements
     from repro_torch.tree import tree_map_with_path
-    return tree_map_with_path(lambda p, x: distribute(x, NamedSharding(
-        mesh, cache_spec(p, x, mesh, seq_len=0))), tree)
+    return tree_map_with_path(lambda p, x: zeros(
+        x.shape, dtype=x.dtype, device_mesh=mesh.device_mesh,
+        placements=placements(cache_spec(p, x, mesh, seq_len=0), mesh)),
+        make("meta"))
 
 
 def gather(x):

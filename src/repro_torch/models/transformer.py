@@ -43,7 +43,9 @@ uses ``jax.checkpoint``; for zamba each mamba layer, as JAX does).
 ``forward`` returns the MoE layers' load-balance losses, summed, as
 ``moe_aux``, which ``loss_fn`` adds with ``router_aux_loss_coef``.
 Cross-entropy goes in sequence chunks, each checkpointed, so the [B, T,
-V] logits live for one chunk at a time. ``loss_fn`` is the next-token
+V] logits live for one chunk at a time (on a mesh, each chip's rows and
+its shard of the vocabulary: ``shard_hints.logsumexp``, ``take`` and
+``argmax`` reduce the shards). ``loss_fn`` is the next-token
 loss, over the text region only for a VLM batch, or the loss on
 ``batch["labels"]`` (per-frame classification for encoders).
 
@@ -93,7 +95,8 @@ from repro_torch.models.layers import (Params, attention_params, attn_decode,
                                        make_kv_cache, normal, rms_norm,
                                        swiglu, swiglu_params)
 from repro_torch.models.shard_hints import (argmax, cache_like, checkpoint,
-                                           rows, take)
+                                           logsumexp, put_layer, rows,
+                                           take)
 from repro_torch.tree import unstack
 
 Batch = dict[str, Any]
@@ -357,7 +360,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Batch, *,
 def _ce_chunk(head: Params, xc, yc, mc):
     """Sums over one chunk: (masked CE, mask, masked correct argmax)."""
     logits = dense(head, xc).float()
-    lse = torch.logsumexp(logits, -1)
+    lse = logsumexp(logits)
     gold = take(logits, yc)
     ncorrect = torch.sum((argmax(logits) == yc) * mc)
     return torch.sum((lse - gold) * mc), torch.sum(mc), ncorrect
@@ -428,27 +431,43 @@ def _head_logits(params: Params, x_last):
     return dense(params["head"], x_last).float()
 
 
+def _attn_entries(cfg: ModelConfig, lp: Params, x, positions):
+    """A block's prefill attention on the stream x (its first norm,
+    then GQA or MLA): (output, its cache entries {"k", "v"} or MLA's
+    {"c_kv", "k_rope"}). The normed input is held only inside."""
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    if cfg.use_mla:
+        a, (c_kv, k_r) = mla_mod.mla_forward(cfg, lp["attn"], h, positions)
+        return a, {"c_kv": c_kv, "k_rope": k_r}
+    a, (k, v) = attn_prefill(cfg, lp["attn"], h, positions)
+    return a, {"k": k, "v": v}
+
+
 def _zamba_prefill(cfg: ModelConfig, params: Params, x, positions):
     """The zamba stack over the prompt from a zeroed state: (x, cache
-    {"mamba", "attn_k", "attn_v" [G, B, T, K, hd]})."""
+    {"mamba", "attn_k", "attn_v" [G, B, T, K, hd]}), each group's keys
+    and values written into the stacked cache as they are made."""
     sp = params["shared_attn"]
-    ks, vs = [], []
+    g, _ = zamba_groups(cfg)
+    kv = {"attn_k": None, "attn_v": None}
 
-    def attn(x, _):
+    def attn(x, gi):
         # rows: on a mesh, the residual stream whole on a row shard (a
         # mamba2 layer may leave it split over d_model), so the head
         # projections split their heads and not a partial sum of them
         x = rows(x)
-        h = rms_norm(x, sp["norm1"], cfg.norm_eps)
-        a, (k, v) = attn_prefill(cfg, sp["attn"], h, positions)
-        ks.append(k)
-        vs.append(v)
-        return _shared_mlp(cfg, sp, x + a)
+        a, entries = _attn_entries(cfg, sp, x, positions)
+        for key, t in (("attn_k", entries["k"]), ("attn_v", entries["v"])):
+            kv[key] = put_layer(kv[key], gi, g, t)
+        del entries
+        x = x + a
+        del a
+        return _shared_mlp(cfg, sp, x)
 
-    state = cache_like(m2.mamba2_state(cfg, x.shape[0], device=x.device))
+    state = cache_like(
+        lambda dev: m2.mamba2_state(cfg, x.shape[0], device=dev), x.device)
     x = _run_zamba_stack(cfg, params, x, attn, state)
-    return x, {"mamba": state, "attn_k": torch.stack(ks),
-               "attn_v": torch.stack(vs)}
+    return x, {"mamba": state, **kv}
 
 
 def prefill(cfg: ModelConfig, params: Params, batch: Batch):
@@ -457,14 +476,15 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch):
     is {"main": {"k", "v": [L, B, T, K, hd]}} (MLA: {"c_kv" [L, B, T, r],
     "k_rope" [L, B, T, dr]}), with ``"dense"`` beside ``"main"`` for the
     first dense-MLP layers; for RWKV6 {"rwkv": state}; for zamba
-    {"mamba": state, "attn_k", "attn_v" [G, B, T, K, hd]}. MoE runs
-    dropless."""
+    {"mamba": state, "attn_k", "attn_v" [G, B, T, K, hd]}. Each layer's
+    entries go into the stacked cache as the layer makes them
+    (``put_layer``). MoE runs dropless."""
     x = _embed_in(cfg, params, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     if _is_rwkv(cfg):
         x, state = _run_rwkv_stack(cfg, params, x, cache_like(
-            rwkv.rwkv6_state(cfg, x.shape[0], _num_layers(params),
-                             device=x.device)))
+            lambda dev: rwkv.rwkv6_state(cfg, x.shape[0], _num_layers(params),
+                                         device=dev), x.device))
         x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, -1]), {"rwkv": state}
     if _is_zamba(cfg):
@@ -475,23 +495,19 @@ def prefill(cfg: ModelConfig, params: Params, batch: Batch):
     for group, name in STACKS:
         if group not in params:
             continue
-        kv: dict[str, list] = {}
-        for lp in unstack(params[group]):
+        layers = unstack(params[group])
+        kv: dict = {}
+        for i, lp in enumerate(layers):
             x = rows(x)
-            h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-            if cfg.use_mla:
-                a, (c_kv, k_r) = mla_mod.mla_forward(cfg, lp["attn"], h,
-                                                     positions)
-                entries = {"c_kv": c_kv, "k_rope": k_r}
-            else:
-                a, (k, v) = attn_prefill(cfg, lp["attn"], h, positions)
-                entries = {"k": k, "v": v}
+            a, entries = _attn_entries(cfg, lp, x, positions)
             for key, t in entries.items():
-                kv.setdefault(key, []).append(t)
+                kv[key] = put_layer(kv.get(key), i, len(layers), t)
+            del entries
             x = rows(x + a)
-            h = rms_norm(x, lp["norm2"], cfg.norm_eps)
-            x = rows(x + _mlp(cfg, lp, h, dropless=True)[0])
-        cache[name] = {key: torch.stack(ts) for key, ts in kv.items()}
+            del a
+            x = rows(x + _mlp(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps),
+                              dropless=True)[0])
+        cache[name] = kv
     x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
     return _head_logits(params, x[:, -1]), cache
 

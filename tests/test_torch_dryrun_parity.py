@@ -52,6 +52,15 @@ margin over JAX's count that ``chip_smoke.py``'s ``dryrun`` phase holds
 the card's run to (its ``JAX_DOT_FLOPS``, from this tool), on every CPU
 run too.
 
+The temporaries a chip (ROADMAP C.7's memory half): a reduced prefill
+of two query chunks, a reduced zamba2 prefill and a reduced qwen3-moe
+train step, on data 2 x model 4 and pod 2 x data 2 x model 2, each held
+to a stated factor of JAX's (``TEMPS``), and, on the port alone without
+a mesh, prefill's temporaries the same at 2 layers and at 8. ROADMAP
+C.8 and C.9, two layouts decided against GSPMD's, are pinned by exact
+counts: zamba2 on two pods (``_pod_replicated``) and whole heads'
+collective bytes.
+
 deepseek-v2-lite counts 0.35x JAX's in prefill_32k: the port's MoE
 multiplies each expert's routed rows only (an even share of the pairs
 on fake tensors, exact when dropless), where JAX multiplies a dense
@@ -128,11 +137,52 @@ def _forced(heads, kind) -> float:
     return extra * per_head * {"train": 4, "prefill": 1, "decode": 0}[kind]
 
 
+# The temporaries a chip (ROADMAP C.7's memory half), each case's port
+# temp bytes at most FACTOR times JAX's: (arch, shape, mesh, config
+# overrides, FACTOR). Each fails on the slice before, where prefill held
+# every layer's keys and values beside their stack and the plain
+# attention four fp32 score buffers a chunk (2.02x and 2.06x JAX's), and
+# the loss head took every row of a CE chunk with the whole vocabulary
+# on every chip (5.41x; 1.20x on two pods). A prefill of two 1024-row
+# query chunks; a train step at a vocabulary that FSDP-splits the head
+# (its D rows over ``data``), the MoE experts over ``model`` and the
+# rows over ``data`` (or ``pod`` x ``data``). Reduced train steps keep
+# fp32 copies in the plain attention's and norms' backward that JAX
+# fuses: 1.35x JAX's on data 2 x model 4 (at full width 0.998x)
+POD = {"pod": 2, "data": 2, "model": 2}
+MOE_TRAIN = ("qwen3-moe-235b-a22b", (512, 8, "train"))
+TEMPS = {
+    "yi-6b prefill, 2 query chunks": ("yi-6b", (2048, BATCH, "prefill"),
+                                      MESH, {}, 1.0),
+    "zamba2-7b prefill": ("zamba2-7b", (2048, BATCH, "prefill"), MESH, {},
+                          1.0),
+    "qwen3-moe train": (*MOE_TRAIN, MESH, {"vocab_size": 16384}, 1.4),
+    "qwen3-moe train pod 2x2x2": (*MOE_TRAIN, POD, {"vocab_size": 16384},
+                                  1.0),
+}
+# ROADMAP C.8: reduced zamba2's prefill, one group of two mamba2 layers,
+# on data 2 x model 2 and on pod 2 x data 2 x model 2 (the same 8 x 64
+# tokens)
+C8_SHAPE = (T, 8, "prefill")
+C8_MESHES = {"single": {"data": 2, "model": 2}, "two pods": POD}
+
+
+def _temp_job(case):
+    arch, shape, mesh, over, _ = TEMPS[case]
+    return dp.job(arch, shape, mesh, reduced=True, overrides=over)
+
+
+def _c8_job(mesh):
+    return dp.job("zamba2-7b", C8_SHAPE, C8_MESHES[mesh], reduced=True)
+
+
 @pytest.fixture(scope="module")
 def records():
     jobs = [_gqa_job(h, k, kind) for h, k in HEADS for kind in KINDS]
     jobs += [dp.job(*w, MESH, reduced=True) for w in WALKED.values()]
     jobs += [_idle_job(c) for c in IDLE]
+    jobs += [_temp_job(c) for c in TEMPS]
+    jobs += [_c8_job(m) for m in C8_MESHES]
     return dp.run(jobs, timeout=600)
 
 
@@ -153,6 +203,65 @@ def test_dot_flops_a_chip_are_jax_partitioners(records, heads, kv, kind):
         assert p["dot_flops"] == want
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_whole_heads_move_fewer_bytes_than_gspmds_head_dim_split(records,
+                                                                 kind):
+    """ROADMAP C.9, decided: with 6 query heads on 4 ranks the port keeps
+    whole heads (rank 0 runs ``_forced``'s half head more, pinned above)
+    where GSPMD splits head_dim and all-reduces each chip's partial
+    logits. That split moves more bytes than the head it saves: a chip's
+    collectives stay below JAX's in every step (at full width qwen2-7b's
+    28 heads on 16: 28.33 GB against JAX's 1819.87 at prefill_32k, for
+    7.2% more dot FLOPs)."""
+    a, p = _pair(records, _gqa_job(6, 2, kind))
+    assert p["coll_bytes"] < a["coll_bytes"]
+
+
+@pytest.mark.parametrize("case", list(TEMPS))
+def test_temporaries_a_chip_within_jax_partitioners(records, case):
+    a, p = _pair(records, _temp_job(case))
+    assert p["temp_bytes"] <= TEMPS[case][-1] * a["temp_bytes"]
+
+
+def _pod_replicated(cfg, shape, mesh) -> int:
+    """The dot FLOPs a JAX chip runs on two pods beyond the port's chip
+    (ROADMAP C.8). JAX's mamba2 hints name ``data`` alone
+    (``repro/models/mamba2.py:127-143``), so on a mesh with ``pod`` they
+    gather the rows over it: each pod runs the same rows. Its HLO on pod
+    2 x data 2 x model 2 shows the SSD's per-step output product on
+    twice the chip's rows in every mamba2 layer, and ``w_zx`` on twice
+    the rows in every mamba2 layer but a group's first (whose input the
+    shared attention block leaves split over ``pod``; the other products
+    contract half of d_model instead: the same FLOPs). The port keeps
+    the rows over (``pod``, ``data``)."""
+    d_inner, n = 2 * cfg["d_model"], cfg["ssm_state_dim"]
+    m = mesh["model"]
+    rows = shape[1] // (mesh["pod"] * mesh["data"])
+    ssd = shape[0] * 2 * rows * d_inner // m * n
+    w_zx = 2 * rows * shape[0] * cfg["d_model"] * 2 * d_inner // m
+    later = cfg["num_layers"] - cfg["num_layers"] // cfg["shared_attn_period"]
+    return cfg["num_layers"] * ssd + later * w_zx
+
+
+def test_two_pods_split_the_rows_jax_replicates_over_pod(records):
+    """ROADMAP C.8, decided against following: on two pods a port chip
+    runs half of its single-pod count (the rows split over ``pod`` x
+    ``data``), which is JAX's count walked whole on one pod; JAX's
+    chip runs that plus ``_pod_replicated``. Following JAX would double
+    the mamba2 work a chip and raise its temporaries as JAX's (zamba2-7b
+    train_4k: 137.54 GB a chip on one pod, 522.46 on two)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2-7b").reduced()
+    cfg = {f: getattr(cfg, f) for f in ("d_model", "ssm_state_dim",
+                                        "num_layers", "shared_attn_period")}
+    a1, p1 = _pair(records, _c8_job("single"))
+    a2, p2 = _pair(records, _c8_job("two pods"))
+    assert p1["dot_flops"] == a1["walked_dot_flops"]
+    assert p2["dot_flops"] == p1["dot_flops"] / 2
+    assert a2["walked_dot_flops"] == p2["dot_flops"] + _pod_replicated(
+        cfg, C8_SHAPE, POD)
+
+
 @pytest.mark.parametrize("case", list(WALKED))
 def test_counts_are_jax_with_its_hlo_walked_whole(records, case):
     a, p = _pair(records, dp.job(*WALKED[case], MESH, reduced=True))
@@ -168,10 +277,10 @@ def test_batch_one_lays_d_model_over_the_idle_axes_as_jax(records, case):
 
 def test_full_width_prefill_within_chip_smokes_margin_of_jax():
     """yi-6b prefill_32k at full width on the single-pod mesh (the port
-    on 256 fake ranks): a chip's dot FLOPs at most ``chip_smoke``'s
-    margin over JAX's count, the figure its ``dryrun`` phase holds the
-    card's run to, and its temporaries at most 10 GB (38.9 when every
-    rank ran every head)."""
+    on 256 fake ranks): a chip's dot FLOPs and temporaries at most
+    ``chip_smoke``'s margins over JAX's, the figures its ``dryrun``
+    phase holds the card's run to (temporaries: 38.9 GB when every rank
+    ran every head, 8.59 while prefill held the keys and values twice)."""
     import chip_smoke
     combo = ("yi-6b", "prefill_32k")
     j = dp.job(*combo, "single")
@@ -179,4 +288,30 @@ def test_full_width_prefill_within_chip_smokes_margin_of_jax():
     assert p["status"] == "ok", p
     want = chip_smoke.JAX_DOT_FLOPS[combo]
     assert p["dot_flops"] <= chip_smoke.DRYRUN_FLOPS_MARGIN * want
-    assert p["temp_bytes"] <= 10e9
+    assert p["temp_bytes"] <= (chip_smoke.DRYRUN_TEMP_MARGIN
+                               * chip_smoke.JAX_TEMP_BYTES[combo])
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-moe-235b-a22b",
+                                  "pixtral-12b"])
+def test_prefill_temporaries_do_not_grow_with_depth(arch):
+    """The port alone, on fake tensors with no mesh (one chip): a reduced
+    prefill's temporaries (its peak less the cache it returns) are the
+    same at 2 layers and at 8. Each layer's keys and values go into the
+    stacked cache as they are made; before, every layer's were held
+    beside the stack, and each extra layer added its own."""
+    import dataclasses
+
+    from repro_torch.analysis.roofline import measure
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import lower_step
+    shape = ShapeConfig("depth", 256, 2, "prefill")
+    temps = []
+    for layers in (2, 8):
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  num_layers=layers)
+        t = measure(lower_step(cfg, shape, Mesh({"data": 1, "model": 1})))
+        temps.append(t.peak_bytes - t.output_bytes)
+    assert temps[1] == temps[0]

@@ -205,6 +205,16 @@ def test_moe_two_dispatch_groups_match_jax(monkeypatch, mode):
         "the groups should drop other pairs than one group"
 
 
+def test_train_mesh_of_one_is_the_plain_step_bit_for_bit(group_of_one):
+    """``train --mesh 1,1`` (a gloo group of one, every tensor a DTensor)
+    gives the one-process losses exactly, as ``chip_smoke.py``'s
+    ``train_mesh`` phase holds the card's run to them: work split over
+    a mesh axis (the loss head's logsumexp over a vocabulary split over
+    ``model``, ``shard_hints.logsumexp``) takes the plain path on an axis
+    of one rank."""
+    assert _losses("yi-6b", ["--mesh", "1,1"]) == _losses("yi-6b", [])
+
+
 def test_train_mesh_that_does_not_fit_raises():
     with pytest.raises(ValueError, match="mesh 2,2"):
         launch.parse_args(["--mesh", "2,2", "--device", "cpu"])
