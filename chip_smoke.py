@@ -227,7 +227,8 @@ HAND_BOUND_MS = {"yi-6b decode step": 3.7, "yi-6b train step": 38.0,
                  "h2o-danube-1.8b decode step": 1.1}
 DRYRUN_COMBOS = (("qwen3-moe-235b-a22b", "train_4k"),
                  ("yi-6b", "decode_32k"), ("rwkv6-1.6b", "decode_32k"),
-                 ("yi-6b", "prefill_32k"), ("h2o-danube-1.8b", "long_500k"))
+                 ("yi-6b", "prefill_32k"), ("h2o-danube-1.8b", "long_500k"),
+                 ("h2o-danube-1.8b", "prefill_32k"))
 # JAX's dot FLOPs a chip on the single-pod mesh, from its partitioned HLO
 # (unrolled lowerings at 2 and 4 layers extrapolated to the full depth,
 # 512 forced host devices on the CPU): `PYTHONPATH=src:. python
@@ -237,14 +238,17 @@ DRYRUN_COMBOS = (("qwen3-moe-235b-a22b", "train_4k"),
 # The port's count of a combo here may exceed it by DRYRUN_FLOPS_MARGIN
 # at most
 JAX_DOT_FLOPS = {("yi-6b", "prefill_32k"): 115723664359424.0,
-                 ("h2o-danube-1.8b", "long_500k"): 47088640.0}
+                 ("h2o-danube-1.8b", "long_500k"): 47088640.0,
+                 ("h2o-danube-1.8b", "prefill_32k"): 46643365314560.0}
 DRYRUN_FLOPS_MARGIN = 1.10
 # JAX's temporaries a chip on the single-pod mesh, the compiled step's
 # memory_analysis() (full depth; same tool and run as JAX_DOT_FLOPS): the
 # port's temp bytes of a combo here may exceed them by DRYRUN_TEMP_MARGIN
-# at most
+# at most. The dry-run counts the card's flash kernel in prefill (its
+# op), not the plain version's score buffer
 JAX_TEMP_BYTES = {("yi-6b", "prefill_32k"): 4303365488,
-                  ("qwen3-moe-235b-a22b", "train_4k"): 72509044256}
+                  ("qwen3-moe-235b-a22b", "train_4k"): 72509044256,
+                  ("h2o-danube-1.8b", "prefill_32k"): 1873166912}
 DRYRUN_TEMP_MARGIN = 1.05
 
 
@@ -1061,6 +1065,58 @@ def kernel_phase(dev) -> dict:
     out["mdsa_4096"] = check_mdsa(dev, 256, 4096, seed=30)
     for b, d in ((8, 64), (128, 128), (100, 200), (1, 32)):
         out[f"mdsa_{b}x{d}"] = check_mdsa(dev, b, d, seed=b + d)
+    return out
+
+
+def kernel_ops_phase(dev) -> dict:
+    """The three kernels the dry-run counts through their ops
+    (``torch.ops.repro_torch.*``) against the real launches at their
+    path shapes (yi-6b's serve window and last decode step, rwkv6's
+    generate prefill): ``torch.library.opcheck``'s schema check (the
+    scan writes ``s_out`` alone) and fake-tensor check (the fake
+    implementation's output shape, dtype and strides against the
+    launch's). Per call: the wrapper (the card's path: its dispatch, the
+    launch and its count), the kernel function alone, and the op (the
+    dispatcher on top of the launch)."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rwkv6_scan import kernel as rk
+    from repro_torch.kernels.rwkv6_scan import ops as rops
+    rng = np.random.default_rng(41)
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev).to(torch.bfloat16)
+    r, k, v, w, u, s0 = scan_inputs(dev, GEN_ROWS, GEN_PROMPT, 32, 64,
+                                    torch.bfloat16, seed=42)
+    s_out = torch.empty_like(s0)
+    q, kc = mk(8, 48, 32, 128), [mk(8, 48, 4, 128) for _ in range(2)]
+    qd, cache = mk(8, 32, 128), [mk(8, 544, 4, 128) for _ in range(2)]
+    lens = torch.full((8,), 543, dtype=torch.int32, device=dev)
+    cases = {
+        "flash_attention": (fops.flash_attention_op, (q, *kc, True, 0),
+                            lambda: fops.attention(q, *kc),
+                            lambda: fk.flash_attention(q, *kc)),
+        "decode_attention": (dops.decode_attention_op, (qd, *cache, lens),
+                             lambda: dops.decode_attn(qd, *cache, lens),
+                             lambda: dk.decode_attention(qd, *cache, lens)),
+        "rwkv6_scan": (rops.rwkv6_scan_op, (r, k, v, w, u, s0, s_out),
+                       lambda: rops.rwkv6_scan(r, k, v, w, u, s0, s_out),
+                       lambda: rk.rwkv6_scan(r, k, v, w, u, s0, s_out))}
+    out = {}
+    with torch.no_grad():
+        for name, (op, args, wrapper, launch) in cases.items():
+            torch.library.opcheck(op, args, test_utils=("test_schema",
+                                                         "test_faketensor"))
+            inner = 3 if name == "rwkv6_scan" else 10
+            row = {"op": f"repro_torch::{name}", "opcheck": "passed",
+                   "wrapper_ms": time_ms(wrapper, inner=inner),
+                   "kernel_ms": time_ms(launch, inner=inner),
+                   "op_ms": time_ms(lambda: op(*args), inner=inner)}
+            log({"phase": "kernel_ops", **row})
+            out[name] = row
     return out
 
 
@@ -3006,6 +3062,8 @@ def main() -> int:
 
     phases["kernels"] = kern = kernel_phase(dev)
     lap("kernels")
+    phases["kernel_ops"] = kernel_ops_phase(dev)
+    lap("kernel_ops")
     phases["model"] = model_phase(dev)
     phases["decode_model"] = decode_model_phase(dev)
     lap("model")

@@ -12,7 +12,14 @@ local aten ops as they run, on fake tensors (``launch.specs.lower_step``:
 nothing is allocated):
 
 * dot FLOPs (matmuls, convolutions, attention) from
-  ``torch.utils.flop_counter``'s formulas, split by operand dtype. The
+  ``torch.utils.flop_counter``'s formulas, split by operand dtype. A
+  Hopper kernel on the step's path is one op on fake tensors, the
+  kernel's own (``torch.ops.repro_torch.*``, reached through its
+  wrapper: flash prefill, decode attention, the RWKV6 scan): its formula,
+  kept beside the op in its ``ops.py``, credits it the plain version's
+  dot FLOPs, and it holds its output and its scratch
+  (``kernels.build.SCRATCH_BYTES``), never the plain version's scores;
+  its bytes are its operands and output, as any op's. The
   plain paths take JAX's ``preferred_element_type=float32`` product of
   16-bit operands by widening them to fp32 first (the Hopper kernels take
   the 16-bit operands): a dot whose operands all hold exact widenings of
@@ -40,9 +47,10 @@ charged to every chip, as JAX's per-device module charges it.
 
 The port's layers run as a Python loop, not a scan, so every layer is
 counted and no depth extrapolation is needed: ``roofline_extrapolated``
-keeps its name and record and says ``method: "full-depth"``. A
-recurrence over the sequence (RWKV6's scan, mamba2's SSD) is charged
-per step: fake tensors hold no values to run it on, so two of its steps
+keeps its name and record and says ``method: "full-depth"``. A plain
+recurrence over the sequence (RWKV6's in training, mamba2's SSD) is
+charged per step: fake tensors hold no values to run it on, so two of
+its steps
 run and their ops, forward and backward, are charged T/2 times
 (``models.shard_hints.stepwise``; ``method`` then says so). So
 ``repro.models.scan_config`` (the switch that unrolls JAX's scans for
@@ -66,6 +74,8 @@ import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.kernels.build import SCRATCH_BYTES
 
 # ---- NVIDIA H100 SXM5 constants (NVIDIA H100 Tensor Core GPU data sheet;
 # dense rates, without sparsity, at the 700 W power limit) ----------------
@@ -235,6 +245,10 @@ class OpTally(TorchDispatchMode):
                           for t in ins + outs) * times
         for t in outs:
             self._track(t, in_storages)
+        scratch = SCRATCH_BYTES.get(func.overloadpacket)
+        if scratch:         # a kernel's, held while it runs
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes
+                                  + scratch(*args, **kwargs))
         # a widened operand: a 16-bit tensor cast to fp32, or one moved
         if outs and outs[0].dtype == torch.float32:
             src = [t for t in ins if t.dim() > 0 or len(ins) == 1]

@@ -20,6 +20,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+from torch._subclasses.fake_tensor import FakeTensor
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -30,6 +32,10 @@ _libs: dict[str, ctypes.CDLL] = {}
 # guards the ops modules' LAUNCHES counters: the transport's worker threads
 # launch the remote tier's kernels concurrently
 LAUNCH_LOCK = threading.Lock()
+# a kernel's op (``torch.ops.repro_torch.*``) -> the bytes of scratch its
+# launch allocates beside its outputs, from the op's arguments: held
+# while the op runs in the dry-run's count (``analysis.roofline.OpTally``)
+SCRATCH_BYTES: dict = {}
 
 
 def refuse_grad(name: str, *tensors) -> None:
@@ -43,6 +49,13 @@ def refuse_grad(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name}: the CUDA kernel has no backward; call it under "
             f"torch.no_grad() or on tensors that do not require grad")
+
+
+def is_fake(x) -> bool:
+    """Whether ``x`` is a fake tensor: shapes without data (the dry-run,
+    ``launch.specs``), which a wrapper hands to its kernel's op, counted
+    as the kernel and launching nothing."""
+    return isinstance(x, FakeTensor)
 
 
 def count_launch(counter: dict, name: str) -> None:

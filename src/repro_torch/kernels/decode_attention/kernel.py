@@ -91,6 +91,12 @@ def splits(b: int, kh: int, s: int, g: int, hd: int,
                       resident * (STAGES - 1) * 2 * tile)
 
 
+def scratch_numel(b: int, h: int, hd: int, nsplit: int) -> int:
+    """fp32 elements of the one scratch buffer a launch allocates: the
+    splits' partial outputs [B, H, nsplit, hd], then their (m, l)."""
+    return b * h * nsplit * (hd + 2)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor,
                      kv_len: torch.Tensor) -> torch.Tensor:
@@ -127,9 +133,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     nsplit, chunk = p.nsplit, p.chunk
     dev = q.device
     o = torch.empty_like(q)
-    # one scratch buffer: the splits' partial outputs, then their (m, l)
     n_o = b * h * nsplit * hd
-    part = torch.empty(n_o + b * h * nsplit * 2, dtype=torch.float32,
+    part = torch.empty(scratch_numel(b, h, hd, nsplit), dtype=torch.float32,
                        device=dev)
     lib = _lib()
     with torch.cuda.device(dev):

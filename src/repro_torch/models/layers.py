@@ -293,10 +293,12 @@ def attn_prefill(cfg: ModelConfig, p: Params, x, positions):
     out = dense(p["wo"], merge_heads(out))
     if cfg.sliding_window and t > cfg.sliding_window:
         # keep only the window, rolled so position p lands at ring slot
-        # p % window (the decode-side convention)
-        w = cfg.sliding_window
-        k = torch.roll(k[:, -w:], shifts=t % w, dims=1)
-        v = torch.roll(v[:, -w:], shifts=t % w, dims=1)
+        # p % window (the decode-side convention): torch.roll(x[:, -w:],
+        # t % w, 1) as a cat of its two slices, which DTensor splits by
+        # rows and heads (torch 2.11's has no sharding rule for roll)
+        w, r = cfg.sliding_window, t % cfg.sliding_window
+        k, v = (torch.cat([x[:, t - r:], x[:, t - w:t - r]], 1)
+                for x in (k, v))
     return out, (k, v)
 
 

@@ -84,14 +84,15 @@ def capacity(cfg: ModelConfig, m: int,
 
 def route(cfg: ModelConfig, p: Params, xf: torch.Tensor):
     """xf: [m, D] -> (top_e [m, k] int64, top_p [m, k] fp32 renormalised,
-    aux 0-d fp32)."""
+    aux 0-d fp32, me [E] fp32): ``me``, the router's mean probabilities
+    over the rows, is the balance loss's share of the one softmax."""
     e, k = cfg.num_experts, cfg.num_experts_per_tok
     logits = xf.float() @ p["router"]["w"].float()                # [m, E]
     probs = torch.softmax(logits, -1)
     top_p, top_e = torch.topk(probs, k, dim=-1)
     top_p = top_p / top_p.sum(-1, keepdim=True)
     me = probs.mean(0)
-    return top_e, top_p, e * torch.sum(me * _fractions(top_e, e))
+    return top_e, top_p, e * torch.sum(me * _fractions(top_e, e)), me
 
 
 def _fractions(top_e: torch.Tensor, e: int) -> torch.Tensor:
@@ -247,7 +248,7 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         y, aux = _moe_sharded(cfg, p, x, capacity_factor, dropless)
     else:
         xf = x.reshape(b * t, d)
-        top_e, top_p, aux = route(cfg, p, xf)
+        top_e, top_p, aux, _ = route(cfg, p, xf)
         keep = _keep(cfg, top_e, _dispatch_groups(b * t), capacity_factor,
                      dropless)
         y = _combine(_experts(cfg, p, xf, top_e, keep, capacity_factor,
@@ -266,8 +267,9 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x, capacity_factor,
     other pairs add nothing); the output is a partial sum over the mesh
     dims that shard the experts. The
     balance loss is JAX's, over all tokens: each group's mean
-    probabilities and routed fractions are averaged over the groups (a
-    partial sum of each group's share over the row-sharding dims)."""
+    probabilities (``route``'s, from its one router product) and routed
+    fractions are averaged over the groups (a partial sum of each
+    group's share over the row-sharding dims)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     mesh = x.device_mesh
     e, k = cfg.num_experts, cfg.num_experts_per_tok
@@ -290,16 +292,14 @@ def _moe_sharded(cfg: ModelConfig, p: Params, x, capacity_factor,
 
     def local(xl, rw, wg, wu, wd):
         xf = xl.reshape(-1, xl.shape[-1])
-        top_e, top_p, _ = route(cfg, {"router": {"w": rw}}, xf)
+        top_e, top_p, _, me = route(cfg, {"router": {"w": rw}}, xf)
         keep_ = _keep(cfg, top_e, 1, capacity_factor, dropless)
         mine = (top_e >= e0) & (top_e < e0 + ne)
         lp = {"w_gate": wg, "w_up": wu, "w_down": wd}
         y = _experts_mine(cfg, lp, xf, torch.where(mine, top_e - e0, 0),
                           (top_p * keep_).to(xf.dtype), keep_ & mine,
                           capacity_factor, dropless)
-        probs = torch.softmax(xf.float() @ rw.float(), -1)
-        ce = _fractions(top_e, e)
-        return y, probs.mean(0) / groups, ce / groups
+        return y, me / groups, _fractions(top_e, e) / groups
 
     y, me, ce = map_local(
         local, mesh, [(x, xpl), (p["router"]["w"], [Replicate()] * mesh.ndim),

@@ -151,12 +151,11 @@ def time_mix(cfg: ModelConfig, p: Params, x, s0, x_prev0,
     r = _heads(cfg, dense(p["wr"], mix("r")))
     g = F.silu(dense(p["wg"], mix("g")))
     u = p["bonus_u"].float().reshape(h, m)
-    if differentiable:
-        scan = rwkv6_scan_ref
-    else:
+    if differentiable:      # fake tensors run two of its steps
+        scan = stepwise(4)(rwkv6_scan_ref)
+    else:       # the kernel (on fake tensors its op, counted whole)
         def scan(r, k, v, w, u, s0, s_out=s_out):
             return rwkv6_scan(r, k, v, w, u, s0, s_out)
-    scan = stepwise(4)(scan)
     if is_sharded(r):
         # on a mesh: each rank scans its own rows and heads
         y, s_t = _scan_sharded(scan, r, k, v, w, u, s0, s_out)

@@ -107,11 +107,13 @@ def test_tally_charges_widened_bf16_dots_at_the_bf16_rate():
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
 @pytest.mark.parametrize("kind", ["prefill", "train"])
 def test_recurrence_charged_per_step_counts_every_step(arch, kind):
-    """Fake tensors run two steps of a recurrence (``shard_hints
+    """Fake tensors run two steps of a plain recurrence (``shard_hints
     .stepwise``) and charge their ops, forward and backward, T/2 times:
     the dot FLOPs equal the same step's on real tensors, where all T
     steps run (reduced config, T = 16; only the stand-in's last-step
-    repeat differs, and it is no dot)."""
+    repeat differs, and it is no dot). RWKV6's prefill runs its scan
+    kernel, which fake tensors count whole as its op (its formula
+    credits all T steps), so nothing there is charged per step."""
     from repro_torch.launch.specs import make_steps
     from repro_torch.models import transformer as T
     from repro_torch.train.loop import make_train_step
@@ -119,7 +121,7 @@ def test_recurrence_charged_per_step_counts_every_step(arch, kind):
     cfg = get_config(arch).reduced()
     shape = ShapeConfig("s", 16, 2, kind)
     fake = roofline.measure(lower_step(cfg, shape, make_host_mesh()))
-    assert fake.charged
+    assert fake.charged == (kind == "train" or arch == "zamba2-7b")
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(
         1, cfg.vocab_size, (2, 16)).astype(np.int32))}

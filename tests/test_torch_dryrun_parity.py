@@ -61,6 +61,15 @@ C.8 and C.9, two layouts decided against GSPMD's, are pinned by exact
 counts: zamba2 on two pods (``_pod_replicated``) and whole heads'
 collective bytes.
 
+The sharded MoE runs one router product a layer (ROADMAP C.10): the
+reduced qwen3-moe train step on data 2 x model 4 counts what the port
+counted when it ran a second one for the balance loss, less that
+product's four runs a layer, exactly. The three kernels on the serving
+path (flash prefill, decode attention, the RWKV6 scan) are counted as
+the kernels, never through their plain versions (ROADMAP C.11): the
+plain version's dot FLOPs to the FLOP, and fewer temporaries, a
+prefill's by at least one fp32 score buffer a query chunk.
+
 deepseek-v2-lite counts 0.35x JAX's in prefill_32k: the port's MoE
 multiplies each expert's routed rows only (an even share of the pairs
 on fake tensors, exact when dropless), where JAX multiplies a dense
@@ -273,6 +282,96 @@ def test_counts_are_jax_with_its_hlo_walked_whole(records, case):
 def test_batch_one_lays_d_model_over_the_idle_axes_as_jax(records, case):
     a, p = _pair(records, _idle_job(case))
     assert p["dot_flops"] == a["walked_dot_flops"]
+
+
+# ROADMAP C.10: the port's count of TEMPS' "qwen3-moe train" while its
+# sharded MoE ran the router product twice, once for the routes and once
+# more for the balance loss's mean probabilities
+TWICE_ROUTED_DOT_FLOPS = 23152558080
+
+
+def test_sharded_moe_runs_one_router_product(records):
+    """Each MoE layer's second router product, [rows, D] x [D, E] in
+    fp32, ran four times in the remat'd train step: its forward, its
+    recompute and the two products of its backward (dx and d router.w).
+    The count is the old one less those, to the FLOP."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MOE_TRAIN[0]).reduced()
+    seq, batch, _ = MOE_TRAIN[1]
+    rows = seq * batch // MESH["data"]      # a data rank's dispatch group
+    moe_layers = cfg.num_layers - cfg.first_dense_layers
+    removed = 4 * 2 * rows * cfg.d_model * cfg.num_experts * moe_layers
+    _, p = _pair(records, _temp_job("qwen3-moe train"))
+    assert p["dot_flops"] == TWICE_ROUTED_DOT_FLOPS - removed
+
+
+# ROADMAP C.11: (arch, seq_len, kind) on one chip, no mesh, batch BATCH;
+# a prefill of two 1024-row query chunks (h2o-danube's far past its
+# reduced 64-token window: the plain version's scores span every key),
+# a decode over 256 slots
+KERNEL_STEPS = {"yi-6b prefill": ("yi-6b", 2048, "prefill"),
+                "h2o-danube-1.8b prefill": ("h2o-danube-1.8b", 2048,
+                                            "prefill"),
+                "yi-6b decode": ("yi-6b", 256, "decode"),
+                "rwkv6-1.6b prefill": ("rwkv6-1.6b", T, "prefill"),
+                "rwkv6-1.6b decode": ("rwkv6-1.6b", T, "decode")}
+
+
+def _plain_scan(r, k, v, w, u, s0, s_out=None):
+    """``rwkv6_scan``'s CPU branch: the plain version, s_T into ``s_out``
+    when given."""
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+    y, s_t = rwkv6_scan_ref(r, k, v, w, u, s0)
+    return y, s_t if s_out is None else s_out.copy_(s_t)
+
+
+@pytest.mark.parametrize("case", list(KERNEL_STEPS))
+def test_dry_run_counts_the_kernels_not_their_plain_versions(case,
+                                                             monkeypatch):
+    """A dry-run step runs on fake tensors, which each kernel's wrapper
+    hands to the kernel's op: counted with the plain version's dot FLOPs
+    and holding only its output (and decode's scratch). Every plain
+    version raises while the step is counted; then the step is counted
+    again with the wrappers' callers sent to the plain versions."""
+    from repro_torch.analysis.roofline import measure
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.rwkv6_scan import ops as scan_ops
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import lower_step
+    from repro_torch.models import layers, rwkv6
+    arch, seq, kind = KERNEL_STEPS[case]
+    cfg = get_config(arch).reduced()
+
+    def count():
+        t = measure(lower_step(cfg, ShapeConfig("k", seq, BATCH, kind),
+                               Mesh({"data": 1, "model": 1})))
+        return t.total_dot_flops, t.peak_bytes - t.output_bytes
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a dry-run step reached a plain version")
+
+    with monkeypatch.context() as m:
+        for mod, name in ((flash_ops, "attention_ref"),
+                          (decode_ops, "decode_attention_ref"),
+                          (scan_ops, "rwkv6_scan_ref")):
+            m.setattr(mod, name, refuse)
+        flops, temps = count()
+    with monkeypatch.context() as m:
+        m.setattr(layers, "attention", attention_ref)
+        m.setattr(layers, "decode_attn", decode_attention_ref)
+        m.setattr(rwkv6, "rwkv6_scan", _plain_scan)
+        plain_flops, plain_temps = count()
+    assert flops == plain_flops
+    if kind == "prefill" and arch != "rwkv6-1.6b":
+        scores = 4 * BATCH * cfg.num_heads * 1024 * seq   # fp32, a chunk
+        assert plain_temps - temps >= scores
+    else:
+        assert temps < plain_temps
 
 
 def test_full_width_prefill_within_chip_smokes_margin_of_jax():

@@ -166,7 +166,7 @@ def test_moe_forward_matches_jax(arch, mode):
     srt = np.sort(np.asarray(probs), -1)[:, ::-1]
     assert (srt[:, k - 1] - srt[:, k]).min() > 1e-5
     jtp, jte = jax.lax.top_k(probs, k)
-    te, tpr, _ = moe.route(cfg, tp, torch.from_numpy(np.array(xf)))
+    te, tpr, _, _ = moe.route(cfg, tp, torch.from_numpy(np.array(xf)))
     np.testing.assert_array_equal(te.numpy(), np.asarray(jte))
     np.testing.assert_allclose(tpr.numpy(), np.asarray(
         jtp / jtp.sum(-1, keepdims=True)), atol=1e-6)

@@ -20,8 +20,9 @@
   ``model``, each rank reading the one KV head) and decode over a cache
   whose slots the mesh shards, against one process; and the
   sharded MoE layer (rows over ``data``, or experts over ``model``)
-  against JAX's: output, balance loss and gradients. One spawn keeps
-  the suite inside its time limit.
+  against JAX's: output, balance loss and gradients, and the balance
+  loss's own gradient. One spawn, shared by two tests, keeps the suite
+  inside its time limit.
 * One ``torchrun`` of four: reduced yi-6b with 6 query heads on
   ``--mesh 1,4``, whose last rank holds none; and on 2 x 2, where a
   batch of one leaves ``data`` idle and the residual stream lays d_model
@@ -260,8 +261,14 @@ def _check_decode(dec: dict) -> None:
     assert dec["max_abs_err"] <= 1e-5 * max(dec["scale"], 1.0), dec
 
 
-def test_two_process_gloo_mesh():
-    res = _torchrun(2, 600)
+@pytest.fixture(scope="module")
+def two_ranks() -> dict:
+    """This file's ``__main__`` on two gloo ranks, run once."""
+    return _torchrun(2, 600)
+
+
+def test_two_process_gloo_mesh(two_ranks):
+    res = two_ranks
     assert res["constrain"] and res["gate"] and res["serve"], res
     assert all({"2,1", "1,2"} <= set(got) for got in res["train"].values())
     _check_train(res)
@@ -275,6 +282,22 @@ def test_two_process_gloo_mesh():
         assert m["aux"] == pytest.approx(m["jax_aux"], rel=1e-5), (case, m)
         # fp32 gradients summed over the ranks in another order
         assert m["grad_rel_err"] <= 1e-5, (case, m)
+
+
+def test_sharded_moe_balance_loss_is_jax(two_ranks):
+    """The sharded MoE's balance loss, its mean probabilities taken from
+    the one router product that routes (ROADMAP C.10), and its own
+    gradient (of the loss alone) into the router and x, against JAX's
+    ``moe_forward`` on the same inputs and weights: rows over ``data``
+    (two dispatch groups) and experts over ``model``, dropless and under
+    capacity. Tolerances: the loss within 1e-5 relative (fp32 means over
+    the ranks summed in another order); its gradient within 1e-5 of the
+    largest gradient entry."""
+    moe_res = two_ranks["moe"]
+    assert len(moe_res) == 2 * len(MOE_ARCHS) * 3
+    for case, m in moe_res.items():
+        assert m["aux"] == pytest.approx(m["jax_aux"], rel=1e-5), (case, m)
+        assert m["aux_grad_rel_err"] <= 1e-5, (case, m)
 
 
 @pytest.fixture(scope="module")
@@ -622,7 +645,8 @@ def _sharded_moe() -> dict:
     parallelism, one group), against JAX's unpatched: for each, the
     largest output difference, both balance losses and the largest
     gradient difference (of ``sum(y * c) + aux``, c fixed) relative to
-    the largest gradient, of x, the router and each expert stack."""
+    the largest gradient, of x, the router and each expert stack, and
+    the same of the balance loss's own gradient, of the router and x."""
     from repro_torch.launch import sharding as sh
     from repro_torch.launch.mesh import device_mesh
     from repro_torch.models.shard_hints import gather
@@ -667,14 +691,34 @@ def _sharded_moe() -> dict:
                     (torch.sum(ty * torch.from_numpy(c)) + taux).backward()
                 want = [jg[0]["router"]["w"], jg[0]["w_gate"],
                         jg[0]["w_up"], jg[0]["w_down"], jg[1]]
+                grads = [gather(t.grad).numpy() for t in leaves]
+                # the balance loss alone: its gradient into the router
+                # and x, through the routes' one router product
+                jmoe._dispatch_groups = lambda n, g=groups: g
+                try:
+                    ja = jax.grad(lambda p, x: jmoe.moe_forward(
+                        jcfg, p, x, **kw)[1], argnums=(0, 1))(
+                        jp, jnp.asarray(x))
+                finally:
+                    jmoe._dispatch_groups = orig
+                aux_leaves = [tp["router"]["w"], tx]
+                for t in aux_leaves:
+                    t.grad = None
+                with use_mesh(mesh):
+                    moe.moe_forward(cfg, tp, tx, **kw)[1].backward()
                 res[f"{name} {arch} {mode}"] = {
                     "max_abs_err": float(np.abs(
                         gather(ty).detach().numpy() - np.asarray(jy)).max()),
                     "aux": float(gather(taux)), "jax_aux": float(jaux),
                     "grad_rel_err": max(
+                        float(np.abs(g - np.asarray(w)).max()
+                              / np.abs(np.asarray(w)).max())
+                        for g, w in zip(grads, want)),
+                    "aux_grad_rel_err": max(
                         float(np.abs(gather(t.grad).numpy() - np.asarray(w))
                               .max() / np.abs(np.asarray(w)).max())
-                        for t, w in zip(leaves, want))}
+                        for t, w in zip(aux_leaves,
+                                        (ja[0]["router"]["w"], ja[1])))}
     return res
 
 
