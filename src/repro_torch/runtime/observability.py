@@ -4,10 +4,53 @@ BiSupervised's value proposition is an operational trade-off — dollars
 saved vs accuracy lost *per request* — so the runtime must be
 inspectable at per-request granularity, not just through aggregate
 ``CascadeStats`` counters after the fact. This module is the one place
-that visibility lives; it is zero-dependency (stdlib + numpy) and every
-hook is no-op-cheap when observability is disabled (the engine guards
-each stamp behind one ``is not None`` check and allocates nothing per
-row).
+that visibility lives; every hook is no-op-cheap when observability is
+disabled (the engine guards each stamp behind one ``is not None`` check
+and allocates nothing per row).
+
+``span(name, device=False)`` names a stretch of the serving and generate
+paths on ``torch.profiler``'s clock, beside the card's operations. It
+records **only while a profiler records**: its one check is torch's own
+Python flag (``torch.autograd.profiler._is_profiler_enabled``), and with
+the flag off it returns one shared no-op context, allocating nothing and
+reading no clock. With the flag on it enters ``record_function(name)``,
+which the trace holds on the thread that opened the profiler only (the
+profiler records no other thread's host events), and on exit adds its
+host seconds, from any thread, to the process-wide registry ``SPANS`` as
+``span_seconds{span=name}``. ``device=True`` also records a pair of
+timing events on the current CUDA stream, taken from a pool that reuses
+them; the pair's elapsed time (the stream's time from the span's start
+to its end, idle gaps between launches included) goes to
+``span_device_seconds{span=name}`` once the stream has passed the end
+event: span exits and reads of ``SPANS`` resolve the finished pairs, and
+neither waits on the card. ``SPANS`` renders through ``snapshot`` and
+``render_prometheus`` like any registry. ``spanned(name)`` wraps a whole
+function in a span. The spans of the port, each on the thread that
+calls its code unless named:
+
+* ``cascade.window`` (scheduler): a window packed, served and handed
+  back; in the overlapped modes one turn of the drain loop.
+* ``cascade.dispatch`` (engine ``_dispatch``): the local tier and the
+  gate launched, the triple's fetch started.
+* ``cascade.gate_wait``: the gate triple landed (``fetch.wait()`` or
+  the early-emit result).
+* ``cascade.host_half``: the rest of ``_host_gate`` and all of
+  ``_host_begin`` (policies, gather, cache, route, submit).
+* ``cascade.remote_wait``: blocked on the remote tier (the synchronous
+  ``call`` in the host half, ``_finalize``'s wait on a transport
+  future).
+* ``cascade.finalize``: scoring and dispositions after that wait.
+* ``cascade.commit`` (engine ``_commit``).
+* ``transport.window`` (``_call_with_retries``): at FIFO depth 1 on
+  the caller's thread, else on a ``remote-transport`` pool thread.
+* ``transport.attempt`` (``device=True``): one ``remote_apply``, on a
+  ``remote-attempt`` pool thread.
+* ``generate.prefill``, ``generate.graft``, ``generate.step``
+  (``greedy_generate``): the prefill and the first token's pick; the
+  decode cache made and grafted; one decode step and its token's pick.
+
+The names avoid the prefixes ``bench.``, ``flash_`` and ``decode_``,
+which the benchmark's trace reduction and kernel readers match on.
 
 Three components behind one ``Observability`` facade:
 
@@ -42,12 +85,18 @@ output as ground truth.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import threading
 import time
 from collections import Counter as _Counter
+from collections import deque
 from collections.abc import Callable
 from typing import Any
+
+import torch
+import torch.autograd.profiler as _profiler
 
 __all__ = [
     "EV_ADMISSION_DEGRADE",
@@ -79,7 +128,10 @@ __all__ = [
     "MetricsRegistry",
     "MetricsServer",
     "Observability",
+    "SPANS",
     "TraceSink",
+    "span",
+    "spanned",
 ]
 
 # -- event names (DESIGN.md §9 event schema) --------------------------------
@@ -474,6 +526,100 @@ class Observability:
         self.metrics.register_collector(
             lambda reg: _collect_engine(reg, engine))
         return self
+
+
+# -- spans on the profiler's timeline (see the module's docstring) ---------
+# every span's seconds, from every thread, while a profiler records
+SPANS = MetricsRegistry()
+_NO_SPAN = contextlib.nullcontext()
+_SPAN_LOCK = threading.Lock()
+_PAIRS: deque = deque()         # (name, start, end) not yet resolved
+_EVENTS: list = []              # timing events free for reuse
+_RESOLVE_AT_EXIT = 4            # finished pairs a span exit resolves, at most
+
+
+def _event() -> "torch.cuda.Event":
+    try:
+        return _EVENTS.pop()
+    except IndexError:
+        return torch.cuda.Event(enable_timing=True)
+
+
+def _resolve(limit: int | None) -> None:
+    """Observe the oldest pairs whose end the stream has passed, up to
+    ``limit``, and return their events to the pool; never waits. Called
+    under ``_SPAN_LOCK``."""
+    n = 0
+    while _PAIRS and (limit is None or n < limit) and _PAIRS[0][2].query():
+        name, start, end = _PAIRS.popleft()
+        SPANS.histogram("span_device_seconds", span=name).observe(
+            start.elapsed_time(end) * 1e-3)
+        _EVENTS.extend((start, end))
+        n += 1
+
+
+class _Span:
+    """A span while the profiler records (see ``span``)."""
+
+    __slots__ = ("name", "device", "_rf", "_start", "_t0")
+
+    def __init__(self, name: str, device: bool):
+        self.name = name
+        # a thread that never touched CUDA has no device work to time
+        self.device = device and torch.cuda.is_initialized()
+
+    def __enter__(self) -> "_Span":
+        self._rf = _profiler.record_function(self.name)
+        self._rf.__enter__()
+        if self.device:
+            self._start = _event()
+            self._start.record()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> None:
+        dt = time.perf_counter() - self._t0
+        if self.device:
+            end = _event()
+            end.record()
+        self._rf.__exit__(exc_type, exc, tb)
+        with _SPAN_LOCK:
+            SPANS.histogram("span_seconds", span=self.name).observe(dt)
+            if self.device:
+                _PAIRS.append((self.name, self._start, end))
+                _resolve(_RESOLVE_AT_EXIT)
+
+
+def span(name: str, *, device: bool = False):
+    """Context naming a stretch of work: a no-op unless ``torch.profiler``
+    is recording, else a ``record_function(name)`` whose host seconds go
+    to ``SPANS`` as ``span_seconds{span=name}``; with ``device`` also the
+    seconds between a CUDA event pair on the current stream around it,
+    as ``span_device_seconds{span=name}``."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, device)
+
+
+def spanned(name: str):
+    """Decorator: each call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def _collect_device_spans(reg: MetricsRegistry) -> None:
+    """Snapshot-time collector of ``SPANS``: resolves every finished
+    pair (a pair the stream has not passed stays for a later read)."""
+    with _SPAN_LOCK:
+        _resolve(None)
+
+
+SPANS.register_collector(_collect_device_spans)
 
 
 def _collect_engine(reg: MetricsRegistry, engine: Any) -> None:

@@ -84,6 +84,7 @@ from .observability import (
     EV_REPLAY_SERVED,
     EV_ROUTER_FAILBACK,
     EV_ROUTER_FAILOVER,
+    span,
 )
 
 
@@ -346,7 +347,7 @@ class RemoteTransport:
         chaos schedules driving a virtual clock still produce timeouts
         without real waits."""
         t0 = self._clock()
-        fut = self._attempts().submit(self.remote_apply, window)
+        fut = self._attempts().submit(self._attempt, window)
         try:
             out = to_host(fut.result(timeout=self.config.timeout_s))
         except FutureTimeout:
@@ -358,6 +359,12 @@ class RemoteTransport:
             raise RemoteTimeout(
                 f"remote window exceeded {self.config.timeout_s}s deadline")
         return out
+
+    def _attempt(self, window: Any) -> Any:
+        """``remote_apply`` on an attempt thread, timed on the card too
+        while a profiler records."""
+        with span("transport.attempt", device=True):
+            return self.remote_apply(window)
 
     def _backoff(self, attempt: int) -> float:
         """Capped exponential backoff with seeded jitter: base * 2^attempt
@@ -443,7 +450,9 @@ class RemoteTransport:
                     self.stats.failed_requests += hi - lo
                 continue
             try:
-                out = self._call_with_retries(_slice(batch, lo, hi), tag)
+                with span("transport.window"):
+                    out = self._call_with_retries(_slice(batch, lo, hi),
+                                                  tag)
             except CircuitOpenError:
                 with self._lock:
                     self.stats.short_circuited += hi - lo

@@ -116,7 +116,7 @@ from repro_torch.models.shard_hints import gather
 from repro_torch.runtime.observability import (EV_BACKEND_AGREEMENT,
                                                EV_DEADLINE_DOWNGRADE,
                                                EV_POLICY_DOWNGRADE,
-                                               EV_STAGE_ANSWER)
+                                               EV_STAGE_ANSWER, span, spanned)
 from repro_torch.runtime.transport import (RemoteBackend, RemoteRouter,
                                            RouteConstraint)
 from repro_torch.serving.policy import (CACHED, DEADLINE_LOCAL, LOCAL,
@@ -900,6 +900,7 @@ class CascadeEngine:
         return out
 
     # -- runtime path: dispatch half (device) --------------------------
+    @spanned("cascade.dispatch")
     def _dispatch(self, batch, real_rows, *, asynchronous: bool,
                   policies=None, t_enq=None) -> _InFlight:
         """Launch the local forward + confidence gate on the device and
@@ -955,13 +956,25 @@ class CascadeEngine:
         it via ``flush_gate`` so those rows hand back BEFORE the
         escalations' cache/routing/transport submission (DESIGN.md
         §11)."""
-        emitted = self.gate_result(fl.seq) if self.early_emit else None
-        # the emitter already landed this window's triple, or the copy
-        # queued at dispatch is waited on here (its event, never a read of
-        # the pinned buffers before it)
-        conf, pred, cand = (emitted if emitted is not None
-                            else fl.gate_fetch.wait())
+        triple = self._land_gate(fl)
+        with span("cascade.host_half"):
+            self._pin_escalations(fl, *triple)
+
+    def _land_gate(self, fl: _InFlight) -> tuple:
+        """The window's gate triple ``(conf, pred, cand)`` on the host."""
+        with span("cascade.gate_wait"):
+            emitted = self.gate_result(fl.seq) if self.early_emit else None
+            # the emitter already landed this window's triple, or the copy
+            # queued at dispatch is waited on here (its event, never a
+            # read of the pinned buffers before it)
+            triple = (emitted if emitted is not None
+                      else fl.gate_fetch.wait())
         fl.gate_fetch = None
+        return triple
+
+    def _pin_escalations(self, fl: _InFlight, conf, pred, cand) -> None:
+        """Pin the escalation set from the landed triple and run the
+        per-request policy pass."""
         fl.conf = np.asarray(conf)
         fl.local_pred = np.asarray(pred)
         fl.pred = fl.local_pred.copy()
@@ -983,8 +996,17 @@ class CascadeEngine:
         """Run the host escalation path: the gate half (if it hasn't run
         yet), then batched gather, cache lookups, submit-time routing and
         the remote submission for the misses."""
-        if not fl.gate_done:
-            self._host_gate(fl)
+        triple = None if fl.gate_done else self._land_gate(fl)
+        self._begin_escalations(fl, triple)
+
+    @spanned("cascade.host_half")
+    def _begin_escalations(self, fl: _InFlight,
+                           triple: tuple | None) -> None:
+        """``_host_begin`` past the gate's wait: pin the escalation set
+        from the landed ``triple`` (None once the gate half ran), then
+        the rest of the host half."""
+        if triple is not None:
+            self._pin_escalations(fl, *triple)
         if fl.k > 0:
             sub = _host_rows(fl.remote_batch, fl.idx)     # batched gather
             if self.cache is not None:
@@ -1009,15 +1031,16 @@ class CascadeEngine:
                                               window=fl.seq)
                 marr = np.asarray(fl.miss)
                 sub_miss = _host_rows(sub, marr)
-                if fl.backend is not None:
-                    fl.pending = (fl.backend.submit(sub_miss, fl.seq)
-                                  if fl.asynchronous
-                                  else _Resolved(
-                                      fl.backend.call(sub_miss, fl.seq)))
-                    if fl.asynchronous:
-                        # ready-set wakeup for the streaming drain
-                        fl.pending.add_done_callback(
-                            lambda _f: self._ready.set())
+                if fl.backend is not None and fl.asynchronous:
+                    fl.pending = fl.backend.submit(sub_miss, fl.seq)
+                    # ready-set wakeup for the streaming drain
+                    fl.pending.add_done_callback(
+                        lambda _f: self._ready.set())
+                elif fl.backend is not None:
+                    # the synchronous serve waits out the remote tier here
+                    with span("cascade.remote_wait"):
+                        fl.pending = _Resolved(
+                            fl.backend.call(sub_miss, fl.seq))
                 elif (fl.asynchronous
                       and self.router.acquire_replay_slot(window=fl.seq)):
                     # every breaker refused: park the window with a
@@ -1193,25 +1216,43 @@ class CascadeEngine:
             return
         if not fl.host_done:
             self._host_begin(fl)
+        landed = self._await_remote(fl) if fl.k > 0 and fl.miss else None
+        with span("cascade.finalize"):
+            self._decide(fl, landed)
+
+    def _await_remote(self, fl: _InFlight) -> tuple | None:
+        """The window's remote ``(logits, ok)``, once landed; None when no
+        backend took the window."""
+        if fl.pending is None and fl.replay_ticket:
+            # (unrouted) replay (DESIGN.md §7): one more pick at drain
+            # time — a breaker that half-opened while the window rode the
+            # pipeline serves it (the call IS the half-open probe), billed
+            # to the replaying backend
+            fl.replay_ticket = False
+            fl.backend = self.router.redeem_replay(
+                self._window_constraint(fl), window=fl.seq)
+            if fl.backend is not None:
+                with span("cascade.remote_wait"):
+                    fl.pending = _Resolved(
+                        fl.backend.call(fl.sub_miss, fl.seq))
+            fl.sub_miss = None
+        if fl.pending is None:
+            return None
+        if isinstance(fl.pending, _Resolved):   # waited out at the call
+            return fl.pending.result()
+        with span("cascade.remote_wait"):
+            return fl.pending.result()
+
+    def _decide(self, fl: _InFlight, landed: tuple | None) -> None:
+        """Score the landed remote answers and decide acceptance and each
+        row's disposition (``_finalize`` after its wait)."""
         remote_conf = np.full((fl.b,), np.inf, np.float32)
         n_hits = n_sent = n_failed = 0
         if fl.k > 0:
             cached = fl.cached
             if fl.miss:
-                if fl.pending is None and fl.replay_ticket:
-                    # (unrouted) replay (DESIGN.md §7): one more pick at
-                    # drain time — a breaker that half-opened while the
-                    # window rode the pipeline serves it (the call IS the
-                    # half-open probe), billed to the replaying backend
-                    fl.replay_ticket = False
-                    fl.backend = self.router.redeem_replay(
-                        self._window_constraint(fl), window=fl.seq)
-                    if fl.backend is not None:
-                        fl.pending = _Resolved(
-                            fl.backend.call(fl.sub_miss, fl.seq))
-                    fl.sub_miss = None
-                if fl.pending is not None:
-                    logits, ok = fl.pending.result()
+                if landed is not None:
+                    logits, ok = landed
                     n_sent = int(ok.sum())
                     n_failed = len(fl.miss) - n_sent
                     bname = fl.backend.name
@@ -1331,6 +1372,7 @@ class CascadeEngine:
         fl.finalized = True
 
     # -- runtime path: commit half -------------------------------------
+    @spanned("cascade.commit")
     def _commit(self, fl: _InFlight) -> dict[str, np.ndarray]:
         """Fold the finalized window into stats / per-backend billing /
         controller state. Callers MUST commit in submission order — that

@@ -9,6 +9,10 @@ per group, its mamba2 layers in plain PyTorch; for RWKV6, the prefill and
 every step the RWKV6 scan kernel once per layer), and
 each token is picked by the maxconf kernel (argmax and max-softmax in one
 pass over the vocabulary); the loop never synchronises with the host.
+Under a recording profiler the prefill (with its token's pick), the
+cache's graft and each decode step (with its pick) are the spans
+``generate.prefill``, ``generate.graft`` and ``generate.step``
+(``runtime.observability.span``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.maxconf.ops import maxconf
 from repro_torch.models.transformer import decode_step, make_cache, prefill
+from repro_torch.runtime.observability import span
 
 
 def _pick(logits: torch.Tensor):
@@ -63,18 +68,22 @@ def greedy_generate(cfg: ModelConfig, params, prompt_batch: dict,
     both, so its decoding overwrites the patch prefix's slots; the port
     does not follow it there.) Returns (tokens [B, max_new_tokens]
     int32, likelihood [B, max_new_tokens] f32), both on that device."""
-    logits, pcache = prefill(cfg, params, prompt_batch)
+    with span("generate.prefill"):
+        logits, pcache = prefill(cfg, params, prompt_batch)
+        tok, lik = _pick(logits)
     parts = [prompt_batch[k].shape[:2] for k in ("embeds", "tokens")
              if k in prompt_batch]
     b, t = parts[0][0], sum(n for _, n in parts)
     dev = params["final_norm"].device
-    cache = graft(make_cache(cfg, b, t + max_new_tokens, device=dev), pcache)
+    with span("generate.graft"):
+        cache = graft(make_cache(cfg, b, t + max_new_tokens, device=dev),
+                      pcache)
 
-    tok, lik = _pick(logits)
     toks, liks = [tok], [lik]
     for i in range(max_new_tokens - 1):
-        logits, cache = decode_step(cfg, params, tok, cache, t + i)
-        tok, lik = _pick(logits)
+        with span("generate.step"):
+            logits, cache = decode_step(cfg, params, tok, cache, t + i)
+            tok, lik = _pick(logits)
         toks.append(tok)
         liks.append(lik)
     return torch.stack(toks, 1), torch.stack(liks, 1)

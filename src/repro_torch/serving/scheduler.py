@@ -73,7 +73,7 @@ from typing import Any, Callable
 import numpy as np
 
 from repro_torch.runtime.observability import (EV_ADMISSION_DEGRADE,
-                                         EV_ADMISSION_SHED)
+                                         EV_ADMISSION_SHED, span)
 from repro_torch.serving.policy import (BATCHING_MODES, CACHED, LOCAL, REJECTED,
                                   REMOTE, SHED, RequestPolicy, ServeConfig)
 
@@ -633,11 +633,12 @@ class MicrobatchScheduler:
                 return shed + self._flush_pipelined(depth)
         out: list[Response] = shed
         while self._qsize():
-            chunk, batch = self._next_chunk()
-            t_disp = self._clock()
-            res = self.engine.serve(batch, real_rows=len(chunk),
-                                    **self._serve_args(chunk))
-            out.extend(self._route(chunk, res, t_disp))
+            with span("cascade.window"):
+                chunk, batch = self._next_chunk()
+                t_disp = self._clock()
+                res = self.engine.serve(batch, real_rows=len(chunk),
+                                        **self._serve_args(chunk))
+                out.extend(self._route(chunk, res, t_disp))
         return out
 
     def _check_exclusive_engine(self) -> None:
@@ -656,20 +657,21 @@ class MicrobatchScheduler:
         out: list[Response] = []
         pending: deque[tuple[list[Request], float]] = deque()
         while self._qsize() or pending:
-            while self._qsize() and len(pending) < depth:
-                chunk, batch = self._next_chunk()
-                t_disp = self._clock()
-                self.engine.begin_serve(batch, real_rows=len(chunk),
-                                        **self._serve_args(chunk))
-                pending.append((chunk, t_disp))
-            # about to block on the oldest window: unpark the double-
-            # buffered newest one first, so its remote submission (and in
-            # streaming mode its trusted-local rows) never waits out a
-            # full drain
-            self.engine.flush_dispatch()
-            res = self.engine.complete_next()
-            chunk, t_disp = pending.popleft()
-            out.extend(self._route(chunk, res, t_disp))
+            with span("cascade.window"):
+                while self._qsize() and len(pending) < depth:
+                    chunk, batch = self._next_chunk()
+                    t_disp = self._clock()
+                    self.engine.begin_serve(batch, real_rows=len(chunk),
+                                            **self._serve_args(chunk))
+                    pending.append((chunk, t_disp))
+                # about to block on the oldest window: unpark the double-
+                # buffered newest one first, so its remote submission (and in
+                # streaming mode its trusted-local rows) never waits out a
+                # full drain
+                self.engine.flush_dispatch()
+                res = self.engine.complete_next()
+                chunk, t_disp = pending.popleft()
+                out.extend(self._route(chunk, res, t_disp))
         return out
 
     # -- streaming completion mode (DESIGN.md §7) ----------------------
@@ -700,29 +702,30 @@ class MicrobatchScheduler:
             self._emit_escalated(w, res, out)
 
         while self._qsize() or windows:
-            while self._qsize() and self.engine.inflight < depth:
-                chunk, batch = self._next_chunk()
-                t_disp = self._clock()
-                fl = self.engine.begin_serve(batch, real_rows=len(chunk),
-                                             **self._serve_args(chunk))
-                windows[fl.seq] = _Window(chunk, fl, t_disp)
-                emit_ready_locals()     # previous window's host half ran
-                if not fifo_drain:
-                    for seq, res in self.engine.complete_ready():
+            with span("cascade.window"):
+                while self._qsize() and self.engine.inflight < depth:
+                    chunk, batch = self._next_chunk()
+                    t_disp = self._clock()
+                    fl = self.engine.begin_serve(batch, real_rows=len(chunk),
+                                                 **self._serve_args(chunk))
+                    windows[fl.seq] = _Window(chunk, fl, t_disp)
+                    emit_ready_locals()     # previous window's host half ran
+                    if not fifo_drain:
+                        for seq, res in self.engine.complete_ready():
+                            emit_window(seq, res)
+                # about to block: unpark the newest window so its remote
+                # round trip starts and its trusted-local rows emit NOW
+                # instead of after the next drain wave
+                self.engine.flush_dispatch()
+                emit_ready_locals()
+                if not windows:
+                    break
+                if fifo_drain:
+                    res = self.engine.complete_next()
+                    emit_window(min(windows), res)      # FIFO = lowest seq
+                else:
+                    for seq, res in self.engine.complete_ready(block=True):
                         emit_window(seq, res)
-            # about to block: unpark the newest window so its remote
-            # round trip starts and its trusted-local rows emit NOW
-            # instead of after the next drain wave
-            self.engine.flush_dispatch()
-            emit_ready_locals()
-            if not windows:
-                break
-            if fifo_drain:
-                res = self.engine.complete_next()
-                emit_window(min(windows), res)      # FIFO = lowest seq
-            else:
-                for seq, res in self.engine.complete_ready(block=True):
-                    emit_window(seq, res)
         return out
 
     # -- continuous batching (DESIGN.md §11) ---------------------------
@@ -796,35 +799,36 @@ class MicrobatchScheduler:
             return slots.free >= self.engine.batch_size
 
         while self._qsize() or windows:
-            while self._qsize() and admissible():
-                chunk, batch = self._next_chunk()
-                t_disp = self._clock()
-                fl = self.engine.begin_serve(batch, real_rows=len(chunk),
-                                             **self._serve_args(chunk))
-                windows[fl.seq] = _Window(chunk, fl, t_disp)
-                slots.join(len(chunk))
-                # run this cohort's GATE half NOW (triple fetch + policy
-                # pass only — the early-emitted triple is already on the
-                # host) and hand its trusted locals back before the
-                # escalations' cache/routing/remote submission even runs;
-                # flush_dispatch then completes the submit half
-                self.engine.flush_gate()
-                emit_ready_locals()
+            with span("cascade.window"):
+                while self._qsize() and admissible():
+                    chunk, batch = self._next_chunk()
+                    t_disp = self._clock()
+                    fl = self.engine.begin_serve(batch, real_rows=len(chunk),
+                                                 **self._serve_args(chunk))
+                    windows[fl.seq] = _Window(chunk, fl, t_disp)
+                    slots.join(len(chunk))
+                    # run this cohort's GATE half NOW (triple fetch + policy
+                    # pass only — the early-emitted triple is already on the
+                    # host) and hand its trusted locals back before the
+                    # escalations' cache/routing/remote submission even runs;
+                    # flush_dispatch then completes the submit half
+                    self.engine.flush_gate()
+                    emit_ready_locals()
+                    self.engine.flush_dispatch()
+                    emit_ready_locals()
+                    if not fifo_drain:
+                        for seq, res in self.engine.complete_ready():
+                            emit_window(seq, res)
                 self.engine.flush_dispatch()
                 emit_ready_locals()
-                if not fifo_drain:
-                    for seq, res in self.engine.complete_ready():
+                if not windows:
+                    break
+                if fifo_drain:
+                    res = self.engine.complete_next()
+                    emit_window(min(windows), res)      # FIFO = lowest seq
+                else:
+                    for seq, res in self.engine.complete_ready(block=True):
                         emit_window(seq, res)
-            self.engine.flush_dispatch()
-            emit_ready_locals()
-            if not windows:
-                break
-            if fifo_drain:
-                res = self.engine.complete_next()
-                emit_window(min(windows), res)      # FIFO = lowest seq
-            else:
-                for seq, res in self.engine.complete_ready(block=True):
-                    emit_window(seq, res)
         return out
 
     def _emit_locals(self, w: _Window, out: list[Response]) -> None:
