@@ -40,8 +40,11 @@ toolkit. In order, it
    weights (``repro_torch.serving.greedy_generate``), asserting the
    decode-attention and maxconf launches on that run and that every
    decoded token is what a fresh prefill picks wherever its logit gap
-   decides it; times the decode steps, profiles one, and applies the 2nd
-   supervisor (``seq_min_likelihood``) to the answers;
+   decides it; times the decode steps as the main path runs them (on the
+   dense archs the CUDA graph's replay, also counted on the device
+   trace), profiles one, times calls whose graph is new against the
+   eager loop, and applies the 2nd supervisor (``seq_min_likelihood``)
+   to the answers;
 6. runs the fleet runtime on the same yi-6b: the device -> edge -> cloud
    tier ladder through ``repro_torch.launch.serve`` (both hops the
    full-width remote tier: flash attention once per layer per window of
@@ -149,6 +152,9 @@ SERVE_ARGV = ["--requests", "256", "--batch", "32", "--remote-budget", "0.3"]
 FUSED_REQUESTS = 64
 CONF_TOL = 1e-4        # the gate kernels' confidence tolerance (conf <= 1)
 GEN_ROWS, GEN_PROMPT, GEN_TOKENS = 8, 512, 32   # the generate phase
+# the archs whose decode loop runs as a CUDA graph (one GQA stack, no MoE)
+GRAPH_ARCHS = {"yi-6b", "qwen2-7b", "h2o-danube-1.8b", "pixtral-12b"}
+MISS_CALLS = 3      # generate calls on a new graph key, each a capture
 RWKV_ARCH = "rwkv6-1.6b"
 # the other archs served and generated at full width, one at a time
 FULL_WIDTH_ARCHS = ("qwen2-7b", "h2o-danube-1.8b", "deepseek-v2-lite-16b",
@@ -1495,6 +1501,8 @@ def remote_serve_phase(dev, arch: str, phase: str) -> tuple:
 def free(dev) -> None:
     """Return the freed model's memory to the card, so that the next
     phase measures its own peak."""
+    from repro_torch.serving.generate import release_graphs
+    release_graphs()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize(dev)
@@ -1520,7 +1528,8 @@ def device_profile(fn) -> dict:
     busy_ms = sum(r[1] for r in kern)
     return {"traced_wall_ms": traced_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / traced_ms,
-            "top_kernels_ms": [[k, round(ms, 4), n] for k, ms, n in kern[:8]]}
+            "top_kernels_ms": [[k, round(ms, 4), n] for k, ms, n in kern[:8]],
+            "kernel_calls": {k: n for k, _, n in kern}}
 
 
 def profile_remote_window(stack, rows: int = 8, reps: int = 5) -> dict:
@@ -2309,15 +2318,23 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
     every step), and that each decoded token is what that prefill picks
     wherever its top-2 gap exceeds DECISIVE_GAP[arch] (the tolerance
     where none is given).
-    Times the decode steps of the replay, profiles one, and applies the
-    2nd supervisor (seq_min_likelihood) to the answers."""
+    Times the decode steps as the main path runs them, profiles one
+    (on GRAPH_ARCHS the graph's replay, whose decode-attention launches
+    the device trace counts), and applies the 2nd supervisor
+    (seq_min_likelihood) to the answers. On GRAPH_ARCHS it then times
+    MISS_CALLS calls on prompts one to MISS_CALLS tokens shorter, each a
+    new graph key, against the eager loop on the same prompts (the same
+    tokens and likelihoods, bit for bit) and a second call of the last
+    key."""
     from repro_torch.core.supervisors import seq_min_likelihood
     from repro_torch.core.thresholds import nominal_quantile_threshold
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.kernels.maxconf.ops import maxconf
     from repro_torch.models import transformer as T
     from repro_torch.models.frontend import frontend_embeddings
-    from repro_torch.serving.generate import graft, greedy_generate
+    from repro_torch.runtime.observability import SPANS
+    from repro_torch.serving.generate import (decode_graph, graft,
+                                              greedy_generate)
     cfg, params = stack.rcfg, stack.rparams
     n_l, n_attn = cfg.num_layers, attention_layers(cfg)
     prompt = np.random.default_rng(25).integers(
@@ -2326,17 +2343,26 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
     if patches:
         batch["embeds"] = frontend_embeddings(cfg, rows, patches, seed=25,
                                               device=dev)
-    greedy_generate(cfg, params, batch, 2)          # warm-up (cuBLAS plans)
+    # warm-up at the timed call's shape (cuBLAS plans; on the graph path
+    # the capture), so that the timed call replays every step
+    t0 = time.perf_counter()
+    greedy_generate(cfg, params, batch, GEN_TOKENS)
     torch.cuda.synchronize(dev)
+    first_call_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats(dev)
 
     # the main path
     reset_launch_counts()
+    graph_steps = SPANS.counter("generate_decode_steps_total", path="graph")
+    before = graph_steps.value
     t0 = time.perf_counter()
     toks, liks = greedy_generate(cfg, params, batch, GEN_TOKENS)
     torch.cuda.synchronize(dev)
     wall_s = time.perf_counter() - t0
     counts = launch_counts()
+    graphed = cfg.name in GRAPH_ARCHS
+    assert graph_steps.value - before == (GEN_TOKENS - 1) * graphed, \
+        f"{graph_steps.value - before} graph steps, graph path {graphed}"
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     assert toks.shape == liks.shape == (rows, GEN_TOKENS), toks.shape
     assert toks.dtype == torch.int32 and liks.dtype == torch.float32
@@ -2382,15 +2408,34 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
         # the replay picks the tokens it was fed: it is the main path's run
         assert torch.equal(replay, toks), \
             f"replay picks {int((replay != toks).sum())} tokens differently"
+        eager_ms = step_ms
+
+        if graphed:     # the step as the main path runs it: a replay
+            graph = decode_graph(cfg, params, rows, prompt_len + GEN_TOKENS,
+                                 dev)
+            step_ms = []
+            for i in range(GEN_TOKENS - 1):
+                torch.cuda.synchronize(dev)
+                t1 = time.perf_counter()
+                graph.replay(prompt_len + i)
+                torch.cuda.synchronize(dev)
+                step_ms.append((time.perf_counter() - t1) * 1e3)
 
         def one_step():
-            with torch.no_grad():
-                lg, _ = T.decode_step(cfg, params, toks[:, -2], cache,
-                                      prompt_len + GEN_TOKENS - 2)
-                maxconf(lg)
+            if graphed:
+                graph.replay(prompt_len + GEN_TOKENS - 2)
+            else:
+                with torch.no_grad():
+                    lg, _ = T.decode_step(cfg, params, toks[:, -2], cache,
+                                          prompt_len + GEN_TOKENS - 2)
+                    maxconf(lg)
             torch.cuda.synchronize(dev)
 
         profile = device_profile(one_step)
+        if graphed:     # the device ran the replay's kernels
+            split = sum(n for k, n in profile["kernel_calls"].items()
+                        if "decode_split_kernel" in k)
+            assert split == n_attn, f"{split} decode kernels in a replay"
 
         # self-consistency: token i == argmax of a fresh prefill over
         # prompt + tokens[:i] where that prefill's top-2 gap allows it (at
@@ -2432,6 +2477,7 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
     assert checked >= floor, \
         f"only {checked} of {pairs} tokens had a decisive prefill gap"
 
+    misses = miss_calls(cfg, params, batch) if graphed else {}
     conf = seq_min_likelihood(liks).cpu().numpy()
     t_remote = nominal_quantile_threshold(conf, 0.25)
     med_ms = statistics.median(step_ms)
@@ -2440,11 +2486,12 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
         slots = min(slots, cfg.sliding_window)
     out = {"phase": "generate", "config": cfg.name, "layers": n_l,
            "rows": rows, "prompt": prompt_len, "patches": patches,
-           "new_tokens": GEN_TOKENS,
-           "wall_s": wall_s,
+           "new_tokens": GEN_TOKENS, "graph_path": graphed,
+           "first_call_s": first_call_s, "wall_s": wall_s,
            "tokens_per_s_end_to_end": rows * GEN_TOKENS / wall_s,
            "decode_step_ms_median": med_ms,
            "decode_step_ms_range": [min(step_ms), max(step_ms)],
+           "eager_step_ms_median": statistics.median(eager_ms), **misses,
            "decode_tokens_per_s": rows / med_ms * 1e3,
            "peak_mem_gib": peak_gib, "launches": counts,
            "prefill_checked": checked, "prefill_agree": agree,
@@ -2464,6 +2511,50 @@ def generate_phase(dev, stack, rows: int = GEN_ROWS,
         "kv_slots": None if rwkv else slots, **profile}
     log(prof_row)
     return out
+
+
+def eager_generate(cfg, params, batch: dict, n: int):
+    """``greedy_generate`` through its eager loop (the CPU's path), on the
+    card: (tokens, likelihoods)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import generate as G
+    with torch.no_grad():
+        logits, pcache = T.prefill(cfg, params, batch)
+        tok, lik = G._pick(logits)
+        b = logits.shape[0]
+        t = sum(batch[k].shape[1] for k in ("embeds", "tokens") if k in batch)
+        cache = G.graft(T.make_cache(cfg, b, t + n, logits.device), pcache)
+        return G._decode_eager(cfg, params, tok, lik, cache, t, n - 1)
+
+
+def miss_calls(cfg, params, batch: dict) -> dict:
+    """What a new graph key costs: MISS_CALLS generate calls on prompts
+    1..MISS_CALLS tokens shorter than ``batch``'s (each key new: its
+    first step eager, then the capture), the eager loop on each (the same
+    tokens and likelihoods, bit for bit), and the last key's second call
+    (every step a replay); host seconds, each call ending in a
+    synchronize."""
+    from repro_torch.serving.generate import greedy_generate
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    miss, eager = [], []
+    for k in range(1, MISS_CALLS + 1):
+        sub = {**batch, "tokens": batch["tokens"][:, k:]}
+        got, s = timed(lambda: greedy_generate(cfg, params, sub, GEN_TOKENS))
+        miss.append(s)
+        want, s = timed(lambda: eager_generate(cfg, params, sub, GEN_TOKENS))
+        eager.append(s)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), \
+            f"{cfg.name}: the graph path's call {k} is not the eager loop's"
+    _, hit = timed(lambda: greedy_generate(cfg, params, sub, GEN_TOKENS))
+    return {"miss_call_s": miss, "miss_eager_call_s": eager,
+            "miss_hit_call_s": hit}
 
 
 def auc_roc(conf: np.ndarray, correct: np.ndarray) -> float:

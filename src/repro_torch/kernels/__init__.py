@@ -6,7 +6,9 @@ source under ``csrc/``), ``ops.py`` (dispatch on the tensor's device:
 the kernel for a CUDA tensor, the plain version for a CPU tensor) and
 ``ref.py`` (the plain PyTorch version). ``ops.LAUNCHES`` counts kernel
 launches; ``launch_counts``/``reset_launch_counts`` read and clear them
-all. A wrapper named like its package (``confidence_gate``, ``maxconf``,
+all; ``add_launch_counts`` adds to them (a CUDA graph's replay: the
+wrappers count while it is captured, and the launches replay without
+them). A wrapper named like its package (``confidence_gate``, ``maxconf``,
 ``rwkv6_scan``) is imported from that package's ``ops``, so that no
 function here shadows a subpackage.
 """
@@ -38,6 +40,15 @@ def launch_counts() -> dict[str, int]:
     return out
 
 
+def add_launch_counts(delta: dict[str, int]) -> None:
+    """Add ``delta`` (kernel name -> launches, negative to take away) to
+    the counters."""
+    with LAUNCH_LOCK:
+        for c in _COUNTERS:
+            for name in c.keys() & delta.keys():
+                c[name] += delta[name]
+
+
 def reset_launch_counts() -> None:
     with LAUNCH_LOCK:
         for c in _COUNTERS:
@@ -46,4 +57,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["fused_head_gate", "FusedLocalHead", "attention", "decode_attn",
-           "mdsa_distance", "launch_counts", "reset_launch_counts"]
+           "mdsa_distance", "launch_counts", "add_launch_counts",
+           "reset_launch_counts"]

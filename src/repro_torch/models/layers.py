@@ -316,27 +316,41 @@ def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_inputs(cfg: ModelConfig, pos: int, batch: int, slots: int,
+def decode_inputs(cfg: ModelConfig, pos, batch: int, slots: int,
                   device: torch.device):
-    """A decode step's (positions [1], kv_len [B] int32) for a new token at
-    ``pos`` over a cache of ``slots``: built once per step, shared by every
-    layer's ``attn_decode``."""
+    """A decode step's (positions [1], kv_len [B] int32, slot) for a new
+    token at ``pos`` over a cache of ``slots``: built once per step,
+    shared by every layer's ``attn_decode``. ``slot``, where the token's
+    keys and values go, is ``pos % slots`` under SWA (the ring buffer) or
+    ``pos``. ``pos`` is a host int, or a 0-d integer tensor on
+    ``device``: then everything is computed on the device (the SWA
+    count ``min(pos + 1, slots)`` too) and ``slot`` is a [1] int64
+    tensor, so a CUDA graph of the step reads the position from memory
+    and no host int is involved."""
+    if isinstance(pos, torch.Tensor):
+        at = pos.reshape(1).long()
+        valid = at + 1
+        if cfg.sliding_window:
+            valid = valid.clamp(max=slots)
+            at_slot = at % slots
+        else:
+            at_slot = at
+        return at, valid.to(torch.int32).expand(batch).contiguous(), at_slot
     # ring buffer: every stored slot is within the window -> all valid
     valid = min(pos + 1, slots) if cfg.sliding_window else pos + 1
     return (torch.full((1,), pos, device=device),
-            torch.full((batch,), valid, dtype=torch.int32, device=device))
+            torch.full((batch,), valid, dtype=torch.int32, device=device),
+            pos % slots if cfg.sliding_window else pos)
 
 
-def attn_decode(cfg: ModelConfig, p: Params, x, k_cache, v_cache, pos: int,
+def attn_decode(cfg: ModelConfig, p: Params, x, k_cache, v_cache, slot,
                 positions, kv_len):
-    """One-token decode. x: [B,1,D]; caches [B,slots,K,hd]; pos: absolute
-    position of the new token, with ``positions``/``kv_len`` from
-    ``decode_inputs``. The new k/v are written IN PLACE at slot
-    ``pos % slots`` (SWA ring buffer) or ``pos``; returns (out, k_cache,
-    v_cache) with the same cache tensors."""
+    """One-token decode. x: [B,1,D]; caches [B,slots,K,hd]; ``slot``,
+    ``positions`` and ``kv_len`` from ``decode_inputs``. The new k/v are
+    written IN PLACE at ``slot``; returns (out, k_cache, v_cache) with
+    the same cache tensors."""
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x, positions)
-    slot = pos % k_cache.shape[1] if cfg.sliding_window else pos
     write_slot(k_cache, slot, k[:, 0])
     write_slot(v_cache, slot, v[:, 0])
     if is_sharded(k_cache):

@@ -200,14 +200,21 @@ def local_range(x, dim: int) -> tuple[int, int]:
     return offset, size
 
 
-def write_slot(cache, slot: int, value) -> None:
-    """``cache[:, slot] = value`` in place. On a DTensor each rank
-    writes its own shard: ``value`` (the cache without its slot dim) is
-    laid out as the cache's other dims, and only the rank whose shard of
-    the slot dim holds ``slot`` writes."""
+def write_slot(cache, slot, value) -> None:
+    """``cache[:, slot] = value`` in place. ``slot`` is a host int, or a
+    [1] int64 tensor on a plain cache's device (a CUDA graph's step:
+    ``index_copy_`` reads it from memory). On a DTensor each rank writes
+    its own shard: ``value`` (the cache without its slot dim) is laid
+    out as the cache's other dims, and only the rank whose shard of the
+    slot dim holds ``slot`` (a host int there) writes."""
     if not is_sharded(cache):
-        cache[:, slot] = value
+        if isinstance(slot, torch.Tensor):
+            cache.index_copy_(1, slot, value.unsqueeze(1))
+        else:
+            cache[:, slot] = value
         return
+    if isinstance(slot, torch.Tensor):
+        raise ValueError("a sharded cache takes its slot as a host int")
     from torch.distributed.tensor import Replicate, Shard
     pl = [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard) and p.dim != 1
           else Replicate() for p in cache.placements]

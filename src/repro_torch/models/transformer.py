@@ -553,9 +553,12 @@ def _decode_input(cfg: ModelConfig, params: Params, token) -> torch.Tensor:
                      f"embedding, not {tuple(token.shape)}")
 
 
-def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
+def decode_step(cfg: ModelConfig, params: Params, token, cache, pos):
     """One new token. token: [B] int (on the params' device, or host
-    ints), or a [B, D] embedding; pos: absolute position of the token.
+    ints), or a [B, D] embedding; pos: absolute position of the token, a
+    host int or a 0-d integer tensor on the cache's device (for GQA
+    caches, plain tensors: ``layers.decode_inputs``; read from memory,
+    so ``serving.generate`` replays the step as a CUDA graph).
     Writes its keys and values (MLA: its latent and rope key; RWKV6 and
     mamba2: the new recurrent state) into ``cache`` in place; returns
     (logits [B, V] fp32, cache)."""
@@ -569,14 +572,14 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
         return _head_logits(params, x[:, 0]), cache
     if _is_zamba(cfg):
         sp = params["shared_attn"]
-        positions, kv_len = decode_inputs(
+        positions, kv_len, slot = decode_inputs(
             cfg, pos, b, cache["attn_k"].shape[2], x.device)
 
         def attn(x, gi):
             x = rows(x)         # as in _zamba_prefill
             h = rms_norm(x, sp["norm1"], cfg.norm_eps)
             a, _, _ = attn_decode(cfg, sp["attn"], h, cache["attn_k"][gi],
-                                  cache["attn_v"][gi], pos, positions,
+                                  cache["attn_v"][gi], slot, positions,
                                   kv_len)
             return _shared_mlp(cfg, sp, x + a)
 
@@ -584,7 +587,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
         x = rms_norm(rows(x), params["final_norm"], cfg.norm_eps)
         return _head_logits(params, x[:, 0]), cache
     slots = next(iter(cache["main"].values())).shape[2]
-    positions, kv_len = decode_inputs(cfg, pos, b, slots, x.device)
+    positions, kv_len, slot = decode_inputs(cfg, pos, b, slots, x.device)
     for group, name in STACKS:
         if name not in cache:
             continue
@@ -596,7 +599,7 @@ def decode_step(cfg: ModelConfig, params: Params, token, cache, pos: int):
                                              lc["k_rope"], pos, positions)
             else:
                 a, _, _ = attn_decode(cfg, lp["attn"], h, lc["k"], lc["v"],
-                                      pos, positions, kv_len)
+                                      slot, positions, kv_len)
             x = rows(x + a)
             h = rms_norm(x, lp["norm2"], cfg.norm_eps)
             x = rows(x + _mlp(cfg, lp, h, dropless=True)[0])

@@ -1264,3 +1264,92 @@ def test_engine_early_emit_on_the_card_serves_as_without(dev):
     assert on[3] == on[4] > 0 and forced[3] == forced[4]
     assert off[3] == 0
     assert {r[2] for r in on[0]} >= {"local", "remote"}
+
+
+# the generate path's CUDA graph: reduced decoders in bf16 at the full
+# models' head layouts, a vocabulary wide enough for maxconf's cluster
+# form; arch -> (heads, KV heads, head dim, prompt length). qwen2-7b keeps
+# its QKV bias at a group of 7 (padded to 8 in decode); h2o-danube's
+# prompt of 96 lies past its window of 64, so its ring wraps at once
+GRAPH_DECODERS = {"yi-6b": (8, 1, 128, 40), "qwen2-7b": (7, 1, 128, 40),
+                  "h2o-danube-1.8b": (8, 2, 80, 96)}
+GRAPH_ROWS, GRAPH_TOKENS = 4, 24
+
+
+def _eager_generate(cfg, params, prompt, n):
+    """``greedy_generate``'s eager loop, as the CPU runs it."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import generate
+    with torch.no_grad():
+        logits, pcache = T.prefill(cfg, params, {"tokens": prompt})
+        tok, lik = generate._pick(logits)
+        b, t = prompt.shape
+        cache = generate.graft(T.make_cache(cfg, b, t + n, prompt.device),
+                               pcache)
+        return generate._decode_eager(cfg, params, tok, lik, cache, t, n - 1)
+
+
+@pytest.mark.parametrize("arch", sorted(GRAPH_DECODERS))
+def test_graph_decode_is_the_eager_loop_bit_for_bit(dev, arch):
+    """``greedy_generate`` takes the graph path on the card and gives the
+    eager loop's tokens and likelihoods bit for bit: two calls in a row
+    on other prompts (the static buffers reused, the second all replays)
+    for each of two parameter sets (a graph each), every call counting
+    the eager loop's kernel launches and its steps as graph steps; a
+    graph goes with its parameters, and ``release_graphs`` returns the
+    rest's static caches to the allocator."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.observability import SPANS
+    from repro_torch.serving import generate, greedy_generate
+    h, kh, hd, t = GRAPH_DECODERS[arch]
+    cfg = dataclasses.replace(get_config(arch).reduced(), num_heads=h,
+                              num_kv_heads=kh, head_dim=hd, vocab_size=8192,
+                              dtype="bfloat16")
+    n = GRAPH_TOKENS
+    steps = SPANS.counter("generate_decode_steps_total", path="graph")
+    kernels = ("decode_attention", "maxconf")
+
+    def launched(fn):
+        before = launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        return out, {k: after[k] - before[k] for k in kernels}
+
+    kept = []
+    for seed in (0, 1):
+        params = T.init_params(cfg, torch.Generator(dev).manual_seed(seed))
+        kept.append(params)
+        for call in (0, 1):
+            prompt = torch.randint(
+                1, cfg.vocab_size, (GRAPH_ROWS, t), device=dev,
+                generator=torch.Generator(dev).manual_seed(10 * seed + call))
+            before = steps.value
+            got, n_got = launched(lambda: greedy_generate(
+                cfg, params, {"tokens": prompt}, n))
+            assert steps.value - before == n - 1
+            want, n_want = launched(
+                lambda: _eager_generate(cfg, params, prompt, n))
+            assert torch.equal(got[0], want[0]), (seed, call)
+            assert torch.equal(got[1], want[1]), (seed, call)
+            assert n_got == n_want == {
+                "decode_attention": cfg.num_layers * (n - 1), "maxconf": n}
+
+    def mine():
+        return [k for k in generate.GRAPHS if k[0] == cfg]
+
+    # a graph each, dropped with its parameters, the rest on release
+    assert len(mine()) == 2
+    kept.pop(0)
+    assert len(mine()) == 1
+    cache = sum(x.nbytes for x in
+                generate.GRAPHS[mine()[0]].cache["main"].values())
+    gc.collect()
+    held = torch.cuda.memory_allocated(dev)
+    generate.release_graphs()
+    gc.collect()
+    assert not generate.GRAPHS
+    assert held - torch.cuda.memory_allocated(dev) >= cache

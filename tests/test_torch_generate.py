@@ -111,9 +111,11 @@ def test_make_kv_cache_ring_buffer_holds_only_the_window():
     assert cache["k"].shape[2] == cfg.sliding_window == 64
 
 
-def test_decode_step_matches_jax_teacher_forced(model):
+@pytest.mark.parametrize("pos_on_device", [False, True])
+def test_decode_step_matches_jax_teacher_forced(model, pos_on_device):
     """Prefill, then decode a fixed token sequence (wrapping the ring
-    buffer under SWA); logits and caches after every step match JAX."""
+    buffer under SWA); logits and caches after every step match JAX,
+    with the position a host int or a 0-d tensor (the graph path's)."""
     cfg, jcfg, t = model["cfg"], model["jcfg"], model["t"]
     rng = np.random.default_rng(8)
     prompt = rng.integers(1, cfg.vocab_size, (2, t)).astype(np.int32)
@@ -127,14 +129,50 @@ def test_decode_step_matches_jax_teacher_forced(model):
             jl, jc = jT.decode_step(jcfg, model["jp"],
                                     jnp.asarray(forced[:, i]), jc,
                                     jnp.int32(t + i))
+            pos = torch.tensor(t + i) if pos_on_device else t + i
             tl, tc2 = T.decode_step(cfg, model["tp"],
-                                    torch.from_numpy(forced[:, i]), tc, t + i)
+                                    torch.from_numpy(forced[:, i]), tc, pos)
             assert tc2 is tc                       # updated in place
             np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
             for key in ("k", "v"):
                 np.testing.assert_allclose(tc["main"][key].numpy(),
                                            np.asarray(jc["main"][key]),
                                            atol=1e-4, err_msg=key)
+
+
+# the families whose decode loop the graph path takes (one dense or
+# sliding-window GQA stack, no MoE layer), with a prompt length: h2o's
+# 96 lies past its window of 64, so its ring wraps before decoding
+GRAPH_FAMILIES = {"yi-6b": 8, "qwen2-7b": 8, "h2o-danube-1.8b": 96,
+                  "deepseek-67b": 8, "pixtral-12b": 8}
+
+
+@pytest.mark.parametrize("arch", sorted(GRAPH_FAMILIES))
+def test_decode_step_takes_its_position_as_a_tensor(arch):
+    """``decode_step`` with ``pos`` a 0-d tensor (read on the device, as
+    a CUDA graph of the step reads it) gives the host-int form's logits
+    and cache bit for bit, step after step (under SWA around the ring
+    and past it)."""
+    cfg = get_config(arch).reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    t, steps = GRAPH_FAMILIES[arch], 70
+    prompt = torch.randint(1, cfg.vocab_size, (2, t),
+                           generator=torch.Generator().manual_seed(1))
+    caches = []
+    with torch.no_grad():
+        for _ in range(2):
+            logits, pcache = T.prefill(cfg, params, {"tokens": prompt})
+            caches.append(graft(T.make_cache(cfg, 2, t + steps, "cpu"),
+                                pcache))
+        tok = logits.argmax(-1)
+        for i in range(steps):
+            by_int, _ = T.decode_step(cfg, params, tok, caches[0], t + i)
+            by_tensor, _ = T.decode_step(cfg, params, tok, caches[1],
+                                         torch.tensor(t + i))
+            assert torch.equal(by_int, by_tensor), i
+            tok = by_int.argmax(-1)
+    for key in ("k", "v"):
+        assert torch.equal(caches[0]["main"][key], caches[1]["main"][key])
 
 
 def test_decode_matches_prefill(model):
@@ -222,3 +260,111 @@ def test_decode_step_refuses_embeddings_and_other_families():
     with pytest.raises(ValueError, match="encoder-only"):
         T.decode_step(enc, T.init_params(enc, torch.Generator()), tok,
                       T.make_cache(enc, 2, 8, "cpu"), 0)
+
+
+# ------------------------------------------------- the decode loop's path
+
+# every arch that decodes -> whether its decode loop can be a CUDA graph
+TAKES_THE_GRAPH = {"yi-6b": True, "qwen2-7b": True, "h2o-danube-1.8b": True,
+                   "deepseek-67b": True, "pixtral-12b": True,
+                   "rwkv6-1.6b": False, "zamba2-7b": False,
+                   "deepseek-v2-lite-16b": False,     # MLA, MoE
+                   "qwen3-moe-235b-a22b": False}      # GQA, MoE
+
+
+@pytest.mark.parametrize("arch", sorted(TAKES_THE_GRAPH))
+def test_graph_path_takes_one_gqa_stack_without_moe(arch):
+    """The path selector on the cache and parameters' structure: RWKV6's
+    and zamba2's states, MLA's latents and an MoE layer go to the eager
+    loop (checked on fake tensors of the full parameter tree)."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.serving import generate
+    cfg = get_config(arch).reduced()
+    params = sh.eval_shape(
+        lambda: T.init_params(cfg, torch.Generator().manual_seed(0)))
+    cache = sh.eval_shape(lambda: T.make_cache(cfg, 2, 8, "cpu"))
+    assert generate._gqa_stack(params, cache) is TAKES_THE_GRAPH[arch]
+
+
+def test_graph_path_needs_real_unsharded_cuda_tensors():
+    """CPU tensors, fake CUDA tensors (the dry-run's kind) and DTensors
+    go to the eager loop, and so does a GQA model's CPU prefill."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.serving import generate
+    fake = sh.eval_shape(lambda: torch.zeros(2, device="cuda"))
+    assert fake.is_cuda and not generate._on_card(fake)
+    assert not generate._on_card(torch.zeros(2))
+    assert not dist.is_initialized()
+    try:
+        mesh = device_mesh(Mesh({"data": 1, "model": 1}), "gloo")
+        sharded = DTensor.from_local(torch.zeros(2), mesh.device_mesh,
+                                     [Replicate(), Replicate()])
+        assert not generate._on_card(sharded)
+    finally:
+        dist.destroy_process_group()
+    cfg = get_config("yi-6b").reduced()
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        logits, pcache = T.prefill(cfg, params, {"tokens": torch.ones(
+            (2, 4), dtype=torch.int32)})
+    assert generate._gqa_stack(params, pcache)
+    assert not generate._graphable(params, logits, pcache)
+
+
+class _Bookkept:
+    """``DecodeGraph``'s place in ``GRAPHS`` without its CUDA buffers:
+    what ``decode_graph`` keeps and drops."""
+
+    def __init__(self, cfg, batch, max_len, device):
+        self.release = None
+
+
+@pytest.fixture
+def bookkept(monkeypatch):
+    """``decode_graph`` over an empty ``GRAPHS`` of ``_Bookkept``."""
+    from collections import OrderedDict
+    from repro_torch.serving import generate
+    monkeypatch.setattr(generate, "DecodeGraph", _Bookkept)
+    monkeypatch.setattr(generate, "GRAPHS", OrderedDict())
+    return generate, get_config("yi-6b").reduced()
+
+
+def test_decode_graph_keeps_the_last_keys(bookkept):
+    """A key's second lookup is a hit; other parameters' storage is
+    another key; past ``MAX_GRAPHS`` keys the least recently used goes,
+    its release detached."""
+    generate, cfg = bookkept
+    dev = torch.device("cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    other = {**params, "final_norm": params["final_norm"].clone()}
+    first = generate.decode_graph(cfg, params, 2, 8, dev)
+    theirs = generate.decode_graph(cfg, other, 2, 8, dev)
+    assert theirs is not first
+    assert generate.decode_graph(cfg, params, 2, 8, dev) is first
+    made = [generate.decode_graph(cfg, params, 2, n, dev) for n in (9, 10)]
+    assert len(generate.GRAPHS) == generate.MAX_GRAPHS == 4
+    made.append(generate.decode_graph(cfg, params, 2, 11, dev))
+    assert list(generate.GRAPHS.values()) == [first, *made]
+    assert not theirs.release.alive and first.release.alive
+
+
+def test_decode_graphs_go_with_their_parameters_or_on_release(bookkept):
+    """Freeing the parameters drops their graphs, whatever their other
+    keys; ``release_graphs`` drops every graph."""
+    import gc
+    generate, cfg = bookkept
+    dev = torch.device("cpu")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    other = T.init_params(cfg, torch.Generator().manual_seed(1))
+    for n in (8, 9):
+        generate.decode_graph(cfg, params, 2, n, dev)
+    theirs = generate.decode_graph(cfg, other, 2, 8, dev)
+    assert len(generate.GRAPHS) == 3
+    del params
+    gc.collect()
+    assert list(generate.GRAPHS.values()) == [theirs]
+    generate.release_graphs()
+    assert not generate.GRAPHS and not theirs.release.alive

@@ -238,6 +238,23 @@ def test_generate_counts_a_step_span_per_decode_step(new_tokens):
     assert all(torch.equal(a, b) for a, b in zip(plain, traced))
 
 
+@pytest.mark.parametrize("new_tokens", [1, 4])
+def test_generate_counts_its_decode_steps_by_path(new_tokens):
+    """``generate_decode_steps_total`` rises by a call's decode steps
+    under its path, profiler or not: the eager loop on the CPU."""
+    from repro_torch.serving.generate import greedy_generate
+    cfg, params, prompt = _tiny_generate()
+    steps = {p: obs.SPANS.counter("generate_decode_steps_total", path=p)
+             for p in ("graph", "eager")}
+    before = {p: c.value for p, c in steps.items()}
+    greedy_generate(cfg, params, prompt, new_tokens)
+    _traced(lambda: greedy_generate(cfg, params, prompt, new_tokens))
+    assert {p: c.value - before[p] for p, c in steps.items()} == {
+        "graph": 0, "eager": 2 * (new_tokens - 1)}
+    assert 'generate_decode_steps_total{path="eager"}' in \
+        obs.SPANS.render_prometheus()
+
+
 def test_spans_from_many_threads_lose_no_count():
     """``SPANS`` is written from every thread a span runs on: with more
     threads than cores and a short switch interval no count is lost."""
